@@ -1,0 +1,40 @@
+"""Carry a reference index across: the arrays of a ``repro`` IndexState,
+as numpy arrays, become a port :class:`IndexState` that the port's search
+functions take.
+
+    ref = repro.ann.ivf.build(X, metric="euclidean", n_clusters=64)
+    arrays = {k: np.asarray(v) for k, v in ref.arrays.items()}
+    st = state_from_reference("IVF", ref.metric, arrays, ref.static,
+                              device="cpu")
+    repro_torch.ann.ivf.search(st, Q, k=10, n_probes=5)
+
+The function takes numpy only, so it imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.ann.functional import IndexState
+from repro_torch.bits import words_to_tensor
+
+
+def state_from_reference(algo: str, metric: str,
+                         arrays: Mapping[str, np.ndarray],
+                         static: Mapping[str, Any],
+                         device=None) -> IndexState:
+    """An IndexState on ``device`` holding the same arrays and statics.
+    uint32 arrays (packed codes) become int32 tensors with the same bits."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            out[name] = words_to_tensor(a, dev)
+        else:
+            out[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
+    return IndexState(algo, metric, out, dict(static))
