@@ -16,7 +16,11 @@ Rerank: the probed window goes through the shared rerank
 fold by default, or with ``rerank_kernel=True`` the hand-written Hopper
 kernel ``kernels/csrc/rerank_topk.cu`` (its plain PyTorch version on the
 CPU).  ``streaming`` is an accepted no-op, as in the reference.
-``quantize=`` (compressed-domain search) is not ported yet.
+
+``quantize=`` adds the compressed-domain stage: each inverted list keeps
+its members' codes (cluster-major, like the corpus), the probed window is
+scored by ADC lookups (``adc_window_topk``, m code bytes per candidate)
+and only the ``n_cand`` best go through the exact fp32 rerank.
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.ann import distances as D
-from repro_torch.ann.bruteforce import QUANTIZE_TODO
 from repro_torch.ann.functional import (FunctionalSpec, IndexState,
                                         prepare_points, prepare_queries,
                                         register_functional)
@@ -45,9 +48,9 @@ def build(X: np.ndarray, *, metric: str = "euclidean",
           rerank_kernel: bool = False, quantize=None,
           keep_fp32: bool = True, adc_block=None,
           device=None) -> IndexState:
-    """k-means + cluster-major corpus layout -> IndexState on ``device``."""
-    if quantize is not None:
-        raise NotImplementedError(QUANTIZE_TODO)
+    """k-means + cluster-major corpus layout -> IndexState on ``device``.
+    ``keep_fp32=False`` (quantized builds) drops the fp32 corpus and its
+    norms: the ADC ordering is then the answer."""
     dev = resolve_device(device)
     X = prepare_points(X, metric)
     n, d = X.shape
@@ -73,6 +76,22 @@ def build(X: np.ndarray, *, metric: str = "euclidean",
         "rerank_block": None if rerank_block is None else int(rerank_block),
         "quant": None,
     }
+    if quantize is not None:
+        from repro_torch import quant
+
+        qarrays, qstatic = quant.train_codec(X, quantize, metric=metric,
+                                             device=dev)
+        # codes follow the cluster-major corpus order, so the probed
+        # window's row indices address codes and fp32 rows alike
+        arrays["codes"] = qarrays["codes"][torch.as_tensor(order).to(dev)]
+        arrays["codebooks"] = qarrays["codebooks"]
+        if not keep_fp32:
+            arrays.pop("X")
+            arrays.pop("xsq", None)
+        static.update({
+            "quant": qstatic, "keep_fp32": bool(keep_fp32),
+            "adc_block": None if adc_block is None else int(adc_block),
+        })
     return IndexState("IVF", metric, arrays, static)
 
 
@@ -89,14 +108,25 @@ def search(state: IndexState, Q, *, k: int, n_probes=1, scan=None,
         window and ``n_probes`` masks past it (see module docstring).
     ``scan`` / ``max_scan``   per-list scan budget: only the first ``scan``
         entries of each probed list are reranked (``None`` = whole list).
-    ``n_cand`` / ``max_cand``   quantized builds only (not ported).
+    ``n_cand`` / ``max_cand``   rerank depth, quantized builds only: how
+        many ADC survivors of the probed window go through the exact fp32
+        rerank (``None`` = all); under a ``max_cand`` cap a mask over the
+        sorted ADC prefix.
     """
-    if n_cand is not None or max_cand is not None:
+    quant = state.static.get("quant")
+    if quant is not None and (live is not None or id_map is not None):
+        raise ValueError(
+            "live=/id_map= need the plain fp32 rerank path (the ADC scan "
+            "has no tombstone mask input)")
+    if quant is None and (n_cand is not None or max_cand is not None):
         raise ValueError(
             "n_cand/max_cand are the compressed-domain rerank knobs; "
             "build with quantize= to use them")
     Q, cand, valid = probe_window(state, Q, n_probes=n_probes, scan=scan,
                                   max_probes=max_probes, max_scan=max_scan)
+    if quant is not None:
+        return _rerank_quantized(state, Q, cand, valid, k=k, n_cand=n_cand,
+                                 max_cand=max_cand)
     dev = state.device
     # tombstones: `live` is indexed by corpus row, the window by
     # cluster-major position -- translate through the ids permutation
@@ -112,6 +142,46 @@ def search(state: IndexState, Q, *, k: int, n_probes=1, scan=None,
         xsq=state.arrays.get("xsq"), row_ids=rids, valid=valid,
         block=state.static.get("rerank_block"),
         use_kernel=bool(state.static.get("rerank_kernel", False)))
+
+
+def _rerank_quantized(state: IndexState, Q, cand, valid, *, k: int,
+                      n_cand, max_cand):
+    """Compressed-domain stage 3: ADC-score the probed window (m code
+    bytes per candidate), keep the n_cand best, exact-rerank those."""
+    from repro_torch.kernels.adc_scan import adc_window_topk
+    from repro_torch.quant import build_luts
+
+    Cw = cand.shape[1]
+    if max_cand is None:
+        W = Cw if n_cand is None else max(1, min(int(n_cand), Cw))
+        n_cand = None                   # window == budget: no mask needed
+    else:
+        W = max(1, min(int(max_cand), Cw))
+    dev = state.device
+    luts = build_luts(state["codebooks"], Q, state.metric)
+    adc_d, rows = adc_window_topk(
+        state["codes"], luts, cand, k=W, valid=valid,
+        block=state.static.get("adc_block"))
+    live = None
+    if n_cand is not None:
+        live = (torch.arange(W, device=dev)
+                < torch.as_tensor(n_cand, device=dev))[None, :]
+    if state.stat("keep_fp32"):
+        return rerank_topk(
+            Q, state["X"], rows, k=k, metric=state.metric,
+            xsq=state.arrays.get("xsq"), row_ids=state["ids"], valid=live,
+            block=state.static.get("rerank_block"),
+            use_kernel=bool(state.static.get("rerank_kernel", False)))
+    # no fp32 corpus kept: the ADC ordering is the answer; map the
+    # cluster-major rows back to corpus ids
+    bad = rows < 0
+    if live is not None:
+        bad = bad | ~live
+    adc_d = torch.where(bad, torch.full_like(adc_d, float("inf")), adc_d)
+    ids = torch.where(bad, torch.full_like(rows, -1),
+                      state["ids"][torch.clamp_min(rows, 0).long()])
+    kk = min(int(k), W)
+    return adc_d[:, :kk], ids[:, :kk]
 
 
 def probe_window(state: IndexState, Q, *, n_probes=1, scan=None,
@@ -179,12 +249,11 @@ class IVF(FunctionalANN):
                  seed: int = 0, streaming: bool = False,
                  rerank_block=None, rerank_kernel: bool = False,
                  quantize=None, keep_fp32: bool = True):
-        if quantize is not None:
-            raise NotImplementedError(QUANTIZE_TODO)
         super().__init__(metric, build_params=dict(
             n_clusters=int(n_clusters), n_iters=int(n_iters), seed=int(seed),
             streaming=bool(streaming), rerank_block=rerank_block,
-            rerank_kernel=bool(rerank_kernel), keep_fp32=bool(keep_fp32)))
+            rerank_kernel=bool(rerank_kernel), quantize=quantize,
+            keep_fp32=bool(keep_fp32)))
         self.n_clusters = int(n_clusters)
         self.n_iters = int(n_iters)
         self.seed = int(seed)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, sync
+from repro_torch.bits import words_to_tensor
 
 
 class BaseANN(abc.ABC):
@@ -219,7 +220,9 @@ class FunctionalANN(BaseANN):
 
     def batch_query(self, Q: np.ndarray, k: int) -> None:
         block = max(1, int(self._batch_block_size(k)))
-        Qt = torch.as_tensor(np.asarray(Q)).to(self._state.device)
+        dev = self._state.device
+        Qt = words_to_tensor(Q, dev) if self.metric == "hamming" \
+            else torch.as_tensor(np.asarray(Q)).to(dev)
         outs = []
         for s in range(0, Q.shape[0], block):
             _, ids = self._run_search(Qt[s:s + block], k)

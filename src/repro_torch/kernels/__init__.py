@@ -12,6 +12,10 @@ Kernels:
                    ``repro.kernels.distance_topk.stream_topk_pallas``)
     rerank_topk/   fused candidate gather + rerank + unique top-k (replaces
                    ``repro.kernels.rerank_topk.rerank_topk_pallas``)
+    hamming/       XOR + popcount top-k over packed codes (replaces
+                   ``repro.kernels.hamming.hamming_topk_pallas``)
+    adc_scan/      ADC table-lookup scan + top-C (replaces
+                   ``repro.kernels.adc_scan.adc_scan_pallas``)
     distance/      only the distance epilogue and oracle kernel 1 needs
 
 Build: every ``csrc/*.cu`` is compiled by ``nvcc`` into its own shared
@@ -35,7 +39,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_K = 256          # largest k either kernel takes (see csrc/*.cu)
+MAX_K = 256          # largest k of the top-k kernels (see csrc/*.cu)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, str] = {}

@@ -53,7 +53,6 @@ constexpr int BN = 64;         // corpus rows per tile
 constexpr int BD = 32;         // contraction chunk
 constexpr int THREADS = 256;   // 16 x 16
 constexpr int MAX_K = 256;
-constexpr int MAX_SPLITS = 128;
 
 enum Mode { L2SQ = 0, IP = 1, COS = 2 };
 
@@ -177,37 +176,6 @@ stream_topk_kernel(const float* __restrict__ Q, const float* __restrict__ X,
   }
 }
 
-// Merge the n_splits sorted per-split lists of each query into one, by
-// (dist, id): one thread per query, repeated selection over the list heads.
-__global__ void merge_splits_kernel(const float* __restrict__ part_d,
-                                    const int* __restrict__ part_i,
-                                    float* __restrict__ out_d,
-                                    int* __restrict__ out_i, int nq, int k,
-                                    int n_splits) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= nq) return;
-  int head[MAX_SPLITS];
-  for (int s = 0; s < n_splits; ++s) head[s] = 0;
-  for (int t = 0; t < k; ++t) {
-    float bd = INFINITY;
-    int bi = -1, bs = -1;
-    for (int s = 0; s < n_splits; ++s) {
-      if (head[s] >= k) continue;
-      const size_t o = ((size_t)s * nq + q) * k + head[s];
-      const float dd = part_d[o];
-      const int ii = part_i[o];
-      if (beats(dd, ii, bd, bi)) {
-        bd = dd;
-        bi = ii;
-        bs = s;
-      }
-    }
-    if (bs >= 0) head[bs] += 1;
-    out_d[(size_t)q * k + t] = bd;
-    out_i[(size_t)q * k + t] = bi;
-  }
-}
-
 }  // namespace
 
 extern "C" int stream_topk_launch(const float* Q, const float* X,
@@ -217,7 +185,8 @@ extern "C" int stream_topk_launch(const float* Q, const float* X,
                                   int mode, int n_splits, int rows_per_split,
                                   void* stream) {
   if (nq < 1 || n < 1 || d < 1 || k < 1 || k > MAX_K || n_splits < 1 ||
-      n_splits > MAX_SPLITS || mode < 0 || mode > 2 || rows_per_split < 1)
+      n_splits > repro_topk::MAX_SPLITS || mode < 0 || mode > 2 ||
+      rows_per_split < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (BD * (BQ + 1) + BD * (BN + 1)) +
                       (sizeof(float) + sizeof(int)) * (size_t)BQ * k +
@@ -234,7 +203,7 @@ extern "C" int stream_topk_launch(const float* Q, const float* X,
                                                  rows_per_split);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  merge_splits_kernel<<<(nq + 127) / 128, 128, 0, s>>>(part_d, part_i, out_d,
-                                                       out_i, nq, k, n_splits);
+  repro_topk::merge_splits_kernel<<<(nq + 127) / 128, 128, 0, s>>>(
+      part_d, part_i, out_d, out_i, nq, k, n_splits);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Sorted (dist, id) lists shared by the two kernels.
+// Sorted (dist, id) lists shared by the kernels.
 //
 // A list holds k entries ascending by (dist, id): distance first, the
 // smaller id on distance ties -- the tie rule of the reference's in-kernel
@@ -59,6 +59,41 @@ __device__ __forceinline__ void list_insert_unique(float* ld, int* li, int k,
     }
   }
   if (beats(d, id, ld[k - 1], li[k - 1])) list_insert(ld, li, k, d, id);
+}
+
+// Most corpus ranges a query's scan may be split into (merge_splits).
+constexpr int MAX_SPLITS = 128;
+
+// Merge the n_splits sorted per-split lists of each query into one, by
+// (dist, id): one thread per query, repeated selection over the list heads.
+// part_* are [n_splits][nq][k]; out_* are [nq][k].
+__global__ void merge_splits_kernel(const float* __restrict__ part_d,
+                                    const int* __restrict__ part_i,
+                                    float* __restrict__ out_d,
+                                    int* __restrict__ out_i, int nq, int k,
+                                    int n_splits) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  int head[MAX_SPLITS];
+  for (int s = 0; s < n_splits; ++s) head[s] = 0;
+  for (int t = 0; t < k; ++t) {
+    float bd = INFINITY;
+    int bi = -1, bs = -1;
+    for (int s = 0; s < n_splits; ++s) {
+      if (head[s] >= k) continue;
+      const size_t o = ((size_t)s * nq + q) * k + head[s];
+      const float dd = part_d[o];
+      const int ii = part_i[o];
+      if (beats(dd, ii, bd, bi)) {
+        bd = dd;
+        bi = ii;
+        bs = s;
+      }
+    }
+    if (bs >= 0) head[bs] += 1;
+    out_d[(size_t)q * k + t] = bd;
+    out_i[(size_t)q * k + t] = bi;
+  }
 }
 
 }  // namespace repro_topk

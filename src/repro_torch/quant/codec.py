@@ -1,0 +1,213 @@
+"""Corpus vector codecs: product quantization + per-dimension int8 affine,
+as ``repro.quant.codec``.
+
+One representation serves both codecs, so one asymmetric-distance (ADC)
+path (:mod:`repro_torch.kernels.adc_scan`) covers the whole family:
+
+    codes      [n, m]       uint8   per-vector code words
+    codebooks  [m, K, dsub] float32 sub-codebook c of subspace j at
+                                    ``codebooks[j, c]``
+
+* **pq**: the corpus is split into ``m`` subspaces of ``dsub =
+  ceil(d / m)`` dims (zero-padded; queries pad the same way) and each
+  subspace gets a ``K = 2**bits`` k-means sub-codebook
+  (:func:`repro_torch.ann.kmeans.kmeans`).
+* **int8**: the analytic special case ``m = d, dsub = 1, bits = 8``: the
+  per-dimension affine grid ``lo_j + step_j * c`` is a codebook.
+
+The query stays full precision; a per-query lookup table ``LUT[q, j, c]``
+holds subspace ``j``'s distance contribution for code ``c``, and its sum
+over subspaces is the distance to the *decoded* vector (euclidean: squared
+L2; angular: ``1 - dot``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.ann.kmeans import kmeans
+
+#: codec names accepted by ``quantize=``.
+CODECS = ("pq", "int8")
+
+#: per-codec training knobs (everything else in a quantize dict is a typo).
+_PQ_KEYS = ("m", "bits", "iters", "seed")
+
+QuantSpec = Union[str, Mapping[str, Any], Tuple[str, Mapping[str, Any]]]
+
+
+def normalize_quantize(quantize: QuantSpec) -> Tuple[str, Dict[str, Any]]:
+    """Canonicalise a ``quantize=`` build param to ``(kind, params)``.
+
+    Accepted forms: ``"pq"`` / ``"int8"`` (all defaults),
+    ``{"pq": {"m": 16, "bits": 8}}`` / ``{"int8": {}}`` (the nested form),
+    and the already-split ``("pq", {...})`` pair.  Raises ``ValueError`` on
+    unknown codecs, unknown knobs, or out-of-range ``bits`` (codes are
+    uint8: 1..8).
+    """
+    if isinstance(quantize, str):
+        kind, params = quantize, {}
+    elif isinstance(quantize, tuple) and len(quantize) == 2:
+        kind, params = quantize
+        params = dict(params)
+    elif isinstance(quantize, Mapping):
+        if len(quantize) != 1:
+            raise ValueError(
+                f"quantize must name exactly one codec, got "
+                f"{sorted(quantize)} (expected one of {list(CODECS)})")
+        ((kind, params),) = quantize.items()
+        params = dict(params or {})
+    else:
+        raise ValueError(
+            f"cannot parse quantize={quantize!r}; pass 'pq'/'int8' or "
+            f"{{'pq': {{'m': 16, 'bits': 8}}}}")
+    if kind not in CODECS:
+        raise ValueError(
+            f"unknown quantize codec {kind!r} (expected one of "
+            f"{list(CODECS)})")
+    if kind == "int8" and params:
+        raise ValueError(
+            f"int8 codec takes no knobs (the grid is analytic), got "
+            f"{sorted(params)}")
+    unknown = sorted(set(params) - set(_PQ_KEYS))
+    if unknown:
+        raise ValueError(
+            f"unknown pq knob(s) {unknown}; accepted: {list(_PQ_KEYS)}")
+    if kind == "pq":
+        params.setdefault("m", 16)
+        params.setdefault("bits", 8)
+        params.setdefault("iters", 10)
+        params.setdefault("seed", 0)
+        if not 1 <= int(params["bits"]) <= 8:
+            raise ValueError(
+                f"pq bits={params['bits']} out of range; codes are uint8 "
+                f"(1..8 bits)")
+        if int(params["m"]) < 1:
+            raise ValueError(f"pq m={params['m']} must be >= 1")
+    return kind, params
+
+
+def subspace_split(X: np.ndarray, m: int) -> np.ndarray:
+    """[n, d] -> [n, m, dsub] with dsub = ceil(d/m), zero-padded."""
+    n, d = X.shape
+    dsub = -(-d // m)
+    pad = m * dsub - d
+    if pad:
+        X = np.pad(np.asarray(X), ((0, 0), (0, pad)))
+    return np.asarray(X, np.float32).reshape(n, m, dsub)
+
+
+def train_codec(X: np.ndarray, quantize: QuantSpec, *, metric: str,
+                device=None) -> Tuple[Dict[str, Any], Tuple]:
+    """Train a codec on the canonicalised corpus.
+
+    Returns ``(arrays, static)``: ``arrays`` holds the ``codes`` /
+    ``codebooks`` tensors on ``device``; ``static`` is the hashable
+    ``(kind, m, bits)`` descriptor kept in the state's static dict.
+    """
+    if metric == "hamming":
+        raise ValueError(
+            "quantize= needs a float metric; hamming corpora are already "
+            "packed bit codes")
+    dev = resolve_device(device)
+    kind, params = normalize_quantize(quantize)
+    X = np.asarray(X, np.float32)
+    if kind == "int8":
+        codes, codebooks = _train_int8(X)
+        m, bits = X.shape[1], 8
+    else:
+        m, bits = int(params["m"]), int(params["bits"])
+        codes, codebooks = _train_pq(
+            X, m=m, bits=bits, n_iters=int(params["iters"]),
+            seed=int(params["seed"]), device=dev)
+    arrays = {"codes": torch.as_tensor(codes).to(dev),
+              "codebooks": torch.as_tensor(codebooks).to(dev)}
+    return arrays, (kind, int(m), int(bits))
+
+
+def _train_pq(X: np.ndarray, *, m: int, bits: int, n_iters: int,
+              seed: int, device) -> Tuple[np.ndarray, np.ndarray]:
+    n, d = X.shape
+    m = min(m, d)
+    K = 1 << bits
+    sub = subspace_split(X, m)                       # [n, m, dsub]
+    dsub = sub.shape[2]
+    codes = np.empty((n, m), np.uint8)
+    codebooks = np.empty((m, K, dsub), np.float32)
+    K_train = min(K, n)
+    for j in range(m):
+        block = np.ascontiguousarray(sub[:, j, :])
+        if np.ptp(block, axis=0).max(initial=0.0) == 0.0:
+            # constant subspace (e.g. pure zero-padding when m does not
+            # divide d): one exact centroid, no k-means to run
+            codebooks[j, :] = block[0]
+            codes[:, j] = 0
+            continue
+        centers, assign = kmeans(block, K_train, n_iters=n_iters,
+                                 seed=seed + j, device=device)
+        # pad unused codebook rows with FINITE copies of row 0: codes never
+        # reference them, and the reference's one-hot formulation
+        # multiplies every LUT entry by 0/1 -- an inf pad would give nan
+        codebooks[j, :K_train] = centers
+        codebooks[j, K_train:] = centers[0]
+        codes[:, j] = np.asarray(assign, np.uint8)
+    return codes, codebooks
+
+
+def _train_int8(X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    lo = X.min(axis=0)                               # [d]
+    step = np.maximum((X.max(axis=0) - lo) / 255.0, 1e-12)
+    codes = np.clip(np.round((X - lo) / step), 0, 255).astype(np.uint8)
+    grid = lo[:, None] + step[:, None] * np.arange(256, dtype=np.float32)
+    return codes, grid[:, :, None].astype(np.float32)  # [d, 256, 1]
+
+
+def _split_queries(Q: torch.Tensor, m: int, dsub: int) -> torch.Tensor:
+    """Device analogue of :func:`subspace_split` for a query batch."""
+    b, d = Q.shape
+    pad = m * dsub - d
+    if pad:
+        Q = torch.nn.functional.pad(Q, (0, pad))
+    return Q.reshape(b, m, dsub)
+
+
+def build_luts(codebooks: torch.Tensor, Q, metric: str) -> torch.Tensor:
+    """Per-query ADC lookup tables: [b, m, K] float32 on the codebooks'
+    device.
+
+    ``sum_j LUT[q, j, codes[i, j]]`` is the decoded distance: squared L2
+    for euclidean, ``1 - dot`` for angular (each subspace contributes
+    ``1/m - q_j . c`` so the constant sums to 1).
+    """
+    m, K, dsub = codebooks.shape
+    Q = torch.as_tensor(Q).to(device=codebooks.device, dtype=torch.float32)
+    Qs = _split_queries(Q, m, dsub)                  # [b, m, dsub]
+    cross = torch.einsum("bjd,jkd->bjk", Qs, codebooks)
+    if metric == "euclidean":
+        qsq = torch.sum(Qs * Qs, dim=2)              # [b, m]
+        csq = torch.sum(codebooks * codebooks, dim=2)  # [m, K]
+        return qsq[:, :, None] + csq[None] - 2.0 * cross
+    if metric == "angular":
+        return 1.0 / m - cross
+    raise ValueError(f"no ADC lookup tables for metric {metric!r}")
+
+
+def decode(codebooks: torch.Tensor, codes, d: Optional[int] = None):
+    """Dequantise: [n, m] codes -> [n, d] float32 reconstruction."""
+    m, _, dsub = codebooks.shape
+    codes = torch.as_tensor(codes, device=codebooks.device).long()
+    rec = codebooks[torch.arange(m, device=codebooks.device)[None, :],
+                    codes]                           # [n, m, dsub]
+    rec = rec.reshape(rec.shape[0], m * dsub)
+    return rec if d is None else rec[:, :d]
+
+
+def bytes_per_vector(quant_static: Tuple) -> int:
+    """Scan-stage corpus bytes per vector (the compression-ratio metric:
+    fp32 costs ``4 * d``)."""
+    _, m, _ = quant_static
+    return int(m)

@@ -98,8 +98,9 @@ def test_bruteforce_rejects_what_the_reference_rejects():
     X, _ = _data("euclidean")
     with pytest.raises(ValueError):
         bf.build(X, backend="jnp", streaming=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bf.build(X, quantize="pq", device="cpu")
+    with pytest.raises(ValueError, match="streaming"):
+        bf.build(X, backend="pallas", streaming=True, quantize="pq",
+                 device="cpu")
     st = bf.build(X, backend="pallas", device="cpu")
     with pytest.raises(ValueError):
         bf.search(st, X[:2], k=3, live=np.ones(len(X), bool))

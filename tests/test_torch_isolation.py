@@ -58,7 +58,8 @@ def no_cuda(monkeypatch):
 
 def _entry_points(tmp_path):
     from repro_torch import resolve_device
-    from repro_torch.ann import bruteforce, ivf
+    from repro_torch.ann import bruteforce, hamming, ivf, lsh, rpforest
+    from repro_torch.quant import train_codec
     from repro_torch.ann.distances import pairwise_rows
     from repro_torch.ann.kmeans import kmeans
     from repro_torch.convert import state_from_reference
@@ -70,8 +71,26 @@ def _entry_points(tmp_path):
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
                     arguments=("euclidean", "pallas"),
                     query_argument_groups=((),))
+    codes = np.random.default_rng(1).integers(
+        0, 2**32, (60, 2), dtype=np.uint64).astype(np.uint32)
     return {
         "resolve_device": lambda dev: resolve_device(dev),
+        "hyperplane_build": lambda dev: lsh.hyperplane_build(
+            X, n_tables=2, n_bits=4, device=dev),
+        "e2lsh_build": lambda dev: lsh.e2lsh_build(X, n_tables=2,
+                                                   device=dev),
+        "rpforest.build": lambda dev: rpforest.build(X, n_trees=2,
+                                                     device=dev),
+        "hamming.bruteforce_build": lambda dev: hamming.bruteforce_build(
+            codes, backend="pallas", device=dev),
+        "bitsampling_build": lambda dev: hamming.bitsampling_build(
+            codes, n_trees=2, device=dev),
+        "mih_build": lambda dev: hamming.mih_build(codes, n_chunks=4,
+                                                   device=dev),
+        "train_codec": lambda dev: train_codec(
+            X, {"pq": {"m": 2, "bits": 2}}, metric="euclidean", device=dev),
+        "quantized bruteforce.build": lambda dev: bruteforce.build(
+            X, quantize="int8", adc_kernel=True, device=dev),
         "get_dataset": lambda dev: get_dataset(
             "blobs-euclidean-300", data_dir=tmp_path, device=dev),
         "exact_knn": lambda dev: exact_knn(X, X[:4], 3, "euclidean",
@@ -93,7 +112,10 @@ def _entry_points(tmp_path):
 
 ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "bruteforce.build", "ivf.build", "pairwise_rows",
-                "state_from_reference", "run_definition"]
+                "state_from_reference", "run_definition",
+                "hyperplane_build", "e2lsh_build", "rpforest.build",
+                "hamming.bruteforce_build", "bitsampling_build", "mih_build",
+                "train_codec", "quantized bruteforce.build"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
