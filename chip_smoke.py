@@ -13,6 +13,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ``rerank_topk`` (every mode), ``hamming_topk`` (10^4 x 10^6 codes of
     256 bits, k = 10 and 100, plus a ragged, masked case) and ``adc_scan``
     (n = 10^6; PQ m = 16 and int8 m = 128 tables; C = 10, 256, 1024);
+    ``distance_matrix`` (1,024 x 10^6 x 128, every mode; the k = 256 route
+    through it equals ``stream_topk`` bit for bit; k = 257 and 1,000),
+    the other distances-out routes (``hamming_topk`` at k = 1,000,
+    ``rerank_topk`` at k = 1,000 on IVF's window, ``adc_scan`` at
+    C = 1,500), ``embedding_bag`` (Criteo-1TB's largest table, 39,884,406 x
+    128 fp32, 65,536 bags of 8 lookups on average, bit for bit) and
+    ``decode_attention`` (phi-4-mini at decode_32k: B = 128, 24 heads over
+    8 KV heads, dh = 128, S = 32,768, bf16, within one bf16 ulp; and fp32
+    at the kernel bench's shape).  Each new kernel is also timed against
+    one PyTorch call that computes the same function (``library_ms``),
+    which the port never calls;
  3. the paths through ``repro_torch.core.runner.run_benchmark`` in batch
     mode (best of two repetitions), each with the launch counts set to 0
     just before it and read just after:
@@ -41,6 +52,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
     must not fall as its knob grows.
+ 4. the bench path, counts set to 0 before and read after:
+    ``repro_torch.benchmarks.run --scale default --only kernels,stream``
+    and ``bench_distance_topk`` at ``full`` (n up to 10^6, equal-memory
+    4 * 10^6); every kernel it reaches (1, 3, 5, 6, 7) must launch and
+    every gate of the benches must hold: each kernel row against its plain
+    version at the bench's own shapes (distances within rtol 1e-5, atol
+    1e-4; hamming_topk and embedding_bag bit for bit; decode_attention
+    within 1e-5), and both the materialising (kernel 5 + top-k) and the
+    streaming top-k against the oracle at every n.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on its path and its numbers.
@@ -71,16 +91,8 @@ PQ16 = {"pq": {"m": 16, "bits": 8}}
 # gaussian blob, whose distances to the query differ by less than the PQ
 # reconstruction error, so the ADC order barely ranks inside a blob.
 PQ_EPS = 0.05
-# CUDA C++ programming guide, arithmetic instruction throughput, compute
-# capability 9.0: 32-bit population counts per clock per SM; and the
-# shared-memory rate of 32 four-byte words per clock per SM
-POPC_PER_CLOCK_SM = 16
-LDS_WORDS_PER_CLOCK_SM = 32
-
-# NVIDIA H100 data sheet, dense, without tensor cores for fp32:
-# (fp32 FLOP/s, memory bytes/s) per form factor
-PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
-         "NVL": (60e12, 3.9e12)}
+# The card's peaks (fp32 FLOP/s, bytes/s; popcounts and shared-memory
+# words per clock per SM) are in repro_torch/benchmarks/common.py.
 
 
 def log(msg: str) -> None:
@@ -95,14 +107,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def form_factor(name: str) -> str:
-    if "PCIe" in name:
-        return "PCIe"
-    if "NVL" in name:
-        return "NVL"
-    return "SXM"
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -141,7 +145,7 @@ def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
     at_ties = int((bad & near).sum())
     if exact:
         check(max_err == 0.0 and int(bad.sum()) == 0,
-              "hamming kernel is not bit-exact")
+              "kernel is not bit-exact against its plain version")
     return max_err, outside, at_ties
 
 
@@ -178,7 +182,7 @@ def phase_stream_topk(torch, peaks):
     (l2sq, k=10, 10^4 queries) and nq=4096 for every mode and k."""
     from repro_torch.kernels.distance_topk import (stream_topk_kernel,
                                                    stream_topk_plain)
-    from repro_torch.kernels.distance_topk.ops import _corpus_row, _query_col
+    from repro_torch.kernels.distance.distance import norm_operand
 
     flops_peak, bytes_peak = peaks
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -194,7 +198,7 @@ def phase_stream_topk(torch, peaks):
         if mode == "cos":
             Xm = X / X.norm(dim=1, keepdim=True)
             Q = Q / Q.norm(dim=1, keepdim=True)
-        qsq, xsq = _query_col(Q, mode), _corpus_row(Xm, mode)
+        qsq, xsq = norm_operand(Q, mode), norm_operand(Xm, mode)
         got = stream_topk_kernel(Q, Xm, qsq, xsq, mode=mode, k=k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -314,7 +318,7 @@ def phase_breakdown(torch, ivf_state, Q):
     queries, n_probes=5 under cap 10) and one BruteForce query alone."""
     from repro_torch.ann import ivf
     from repro_torch.kernels.distance_topk import stream_topk_kernel
-    from repro_torch.kernels.distance_topk.ops import _corpus_row, _query_col
+    from repro_torch.kernels.distance.distance import norm_operand
     from repro_torch.kernels.rerank_topk import rerank_topk_kernel
     from repro_torch.kernels.rerank_topk.ops import kernel_operands
 
@@ -343,7 +347,7 @@ def phase_breakdown(torch, ivf_state, Q):
     del Qp, cand, valid, ops
     X = ivf_state["X"]
     q1 = torch.as_tensor(Q[:1]).to("cuda")
-    qsq1, xsq = _query_col(q1, "l2sq"), _corpus_row(X, "l2sq")
+    qsq1, xsq = norm_operand(q1, "l2sq"), norm_operand(X, "l2sq")
     one_ms = cuda_ms(torch, lambda: stream_topk_kernel(
         q1, X, qsq1, xsq, mode="l2sq", k=K), reps=20)
     log(json.dumps({"phase": "breakdown", "what": "stream_topk, nq=1",
@@ -361,6 +365,8 @@ def phase_hamming_topk(torch, peaks, clock_hz):
 
     _, bytes_peak = peaks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    from repro_torch.benchmarks.common import POPC_PER_CLOCK_SM
+
     popc_rate = POPC_PER_CLOCK_SM * sms * clock_hz
     gen = torch.Generator(device="cuda").manual_seed(2)
     n, w, nq = 1_000_000, 8, 10_000
@@ -429,6 +435,8 @@ def phase_adc_scan(torch, peaks, clock_hz):
 
     flops_peak, bytes_peak = peaks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    from repro_torch.benchmarks.common import LDS_WORDS_PER_CLOCK_SM
+
     lds_rate = LDS_WORDS_PER_CLOCK_SM * sms * clock_hz
     gen = torch.Generator(device="cuda").manual_seed(3)
     n, K = 1_000_000, 256
@@ -473,6 +481,360 @@ def phase_adc_scan(torch, peaks, clock_hz):
         del codes, luts, got, want
     torch.cuda.empty_cache()
     return main
+
+
+def within(torch, got, want, rtol: float, atol: float):
+    """(largest |got - want|, largest |got - want| - rtol * |want|): the
+    second must not exceed ``atol``."""
+    diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
+    excess = diff - rtol * want.to(torch.float32).abs()
+    return float(diff.max()), float(excess.max())
+
+
+def bf16_ulps(torch, got, want) -> float:
+    """Largest distance in units of the last place of ``want`` (bf16: a
+    unit at |w| is 2**(floor(log2 |w|) - 7))."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    mag = torch.clamp_min(w.abs(), 2.0 ** -126)
+    return float(((g - w).abs()
+                  / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def phase_distance_matrix(torch, peaks):
+    """Kernel 5 against its plain version at 1,024 queries x 10^6 rows x
+    128 (SIFT-1M's width; a 4.1 GB output) in every mode, timed beside
+    ``torch.mm(-Q, X.T)`` (ip mode's function in one library call, TF32
+    off); then the distances-out route of ``ops.stream_topk``: at k = 256
+    kernel 1 and the route through kernel 5 must agree bit for bit, and at
+    k = 257 and 1,000 the route must agree with the plain version."""
+    from repro_torch.kernels.distance import (distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+    from repro_torch.kernels.distance_topk import (stream_topk,
+                                                   stream_topk_kernel,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance_topk.ops import distances_route
+
+    flops_peak, bytes_peak = peaks
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nq, n, d = 1024, 1_000_000, 128
+    X = torch.randn((n, d), generator=gen, device="cuda")
+    Qa = torch.randn((nq, d), generator=gen, device="cuda")
+    rtol, atol = 1e-5, 1e-4
+    main = None
+    for mode in ("l2sq", "ip", "cos"):
+        Xm, Q = X, Qa
+        if mode == "cos":
+            Xm = X / X.norm(dim=1, keepdim=True)
+            Q = Qa / Qa.norm(dim=1, keepdim=True)
+        qsq, xsq = norm_operand(Q, mode), norm_operand(Xm, mode)
+        got = distance_matrix_kernel(Q, Xm, qsq, xsq, mode=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = distance_matrix_plain(Q, Xm, qsq, xsq, mode=mode)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        max_err, excess = within(torch, got, want, rtol, atol)
+        del got, want
+        ms = cuda_ms(torch, lambda: distance_matrix_kernel(
+            Q, Xm, qsq, xsq, mode=mode), reps=3)
+        library_ms = cuda_ms(torch, lambda: torch.mm(-Q, Xm.T), reps=3)
+        flops = 2.0 * nq * n * d
+        nbytes = 4.0 * (nq * d + n * d + nq + n + nq * n)
+        rec = {"kernel": "distance_matrix", "mode": mode, "nq": nq, "n": n,
+               "d": d, "max_abs_err": max_err, "rtol": rtol, "atol": atol,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "torch.mm(-Q, X.T), TF32 off",
+               "bound_ms": max(flops / flops_peak, nbytes / bytes_peak) * 1e3,
+               "bound_by": "operations" if flops / flops_peak
+               >= nbytes / bytes_peak else "bytes",
+               "tflops": flops / ms / 1e9}
+        log(json.dumps(rec))
+        check(excess <= atol, f"distance_matrix {mode}: error {max_err} "
+              f"beyond rtol {rtol}, atol {atol}")
+        if main is None:
+            main = rec
+        del Xm, Q, qsq, xsq
+    for mode in ("l2sq", "ip", "cos"):
+        Xm, Q = X, Qa
+        if mode == "cos":
+            Xm = X / X.norm(dim=1, keepdim=True)
+            Q = Qa / Qa.norm(dim=1, keepdim=True)
+        qsq, xsq = norm_operand(Q, mode), norm_operand(Xm, mode)
+        a = stream_topk_kernel(Q, Xm, qsq, xsq, mode=mode, k=256)
+        b = distances_route(Q, Xm, qsq, xsq, mode=mode, k=256)
+        same = bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+        log(json.dumps({"route": "stream_topk via distance_matrix",
+                        "mode": mode, "k": 256, "nq": nq, "n": n,
+                        "bitwise_equal_to_stream_topk": same}))
+        check(same, f"k=256 {mode}: the route through distance_matrix does "
+              f"not equal stream_topk bit for bit")
+        del a, b, Xm, Q
+    qsq, xsq = norm_operand(Qa, "l2sq"), norm_operand(X, "l2sq")
+    for k in (257, 1000):
+        got = stream_topk(Qa, X, k=k)
+        want = stream_topk_plain(Qa, X, qsq, xsq, mode="l2sq", k=k + 1)
+        max_err, outside, at_ties = compare(torch, got, want, k, 2e-3)
+        route_ms = cuda_ms(torch, lambda: stream_topk(Qa, X, k=k), reps=2)
+        log(json.dumps({"route": "stream_topk via distance_matrix",
+                        "mode": "l2sq", "k": k, "nq": nq, "n": n,
+                        "max_abs_err": max_err,
+                        "id_mismatch_outside_near_ties": outside,
+                        "id_mismatch_at_near_ties": at_ties,
+                        "ms": route_ms}))
+        check(max_err <= 2e-3 and outside == 0,
+              f"stream_topk k={k}: the route disagrees with the plain "
+              f"version ({max_err}, {outside} ids)")
+        del got, want
+    del X, Qa
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_routes(torch, ivf_state, Q):
+    """The other distances-out routes against their plain versions, with
+    their times: ``hamming_topk`` at k = 1,000 (1,024 queries x 10^6 codes
+    of 256 bits; bit for bit), ``rerank_topk`` at k = 1,000 on IVF's window
+    for the first 2,048 queries (n_probes 5 under cap 10), ``adc_scan`` at
+    C = 1,500 (1,024 queries, PQ m = 16 over 10^6 codes; bit for bit)."""
+    from repro_torch.ann import ivf
+    from repro_torch.kernels.adc_scan import adc_scan, adc_scan_plain
+    from repro_torch.kernels.hamming import hamming_topk, hamming_topk_plain
+    from repro_torch.kernels.rerank_topk import rerank_topk_plain
+    from repro_torch.kernels.rerank_topk.ops import (distances_route,
+                                                     kernel_operands)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    n, w, nq = 1_000_000, 8, 1024
+    X = torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    Qh = X[torch.randint(0, n, (nq,), generator=gen, device="cuda")] ^ 1
+    got = hamming_topk(Qh, X, k=1000)
+    want = hamming_topk_plain(Qh, X, n, k=1001)
+    compare(torch, got, want, 1000, 0.0, exact=True)
+    ms = cuda_ms(torch, lambda: hamming_topk(Qh, X, k=1000), reps=2)
+    out["hamming_topk"] = {"k": 1000, "nq": nq, "n": n, "words": w,
+                           "bitwise_equal": True, "ms": ms}
+    del X, Qh, got, want
+
+    Qp, cand, valid = ivf.probe_window(ivf_state, Q[:2048], n_probes=5,
+                                       max_probes=10)
+    qsq = torch.sum(Qp * Qp, dim=1, keepdim=True)
+    ops = kernel_operands(Qp, ivf_state["X"], qsq, ivf_state["xsq"], cand,
+                          ~valid, ivf_state["ids"], "euclidean", 1000)
+    got = distances_route(**ops)
+    want = rerank_topk_plain(**dict(ops, k=1001))
+    max_err, outside, at_ties = compare(torch, got, want, 1000, 2e-3)
+    check(max_err <= 2e-3 and outside == 0,
+          f"rerank_topk k=1000: the route disagrees with the plain version "
+          f"({max_err}, {outside} ids)")
+    ms = cuda_ms(torch, lambda: distances_route(**ops), reps=2)
+    out["rerank_topk"] = {"k": 1000, "b": int(cand.shape[0]),
+                          "C": int(cand.shape[1]), "max_abs_err": max_err,
+                          "id_mismatch_at_near_ties": at_ties, "ms": ms}
+    del Qp, cand, valid, ops, got, want
+
+    codes = torch.randint(0, 256, (n, 16), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    luts = torch.rand((nq, 16, 256), generator=gen, device="cuda")
+    got = adc_scan(codes, luts, k=1500, use_kernel=True)
+    want = adc_scan_plain(codes, luts, k=1501)
+    compare(torch, got, want, 1500, 0.0, exact=True)
+    ms = cuda_ms(torch, lambda: adc_scan(codes, luts, k=1500,
+                                         use_kernel=True), reps=2)
+    out["adc_scan"] = {"C": 1500, "b": nq, "n": n, "m": 16,
+                       "bitwise_equal": True, "ms": ms}
+    del codes, luts, got, want
+    log(json.dumps({"phase": "routes", "routes": out}))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_embedding_bag(torch, peaks):
+    """Kernel 6 against its plain version on the largest table of
+    Criteo-1TB (``models/recsys.py`` CRITEO_1TB_VOCABS: 39,884,406 rows) at
+    embed_dim 128 in fp32 (20.4 GB), 65,536 bags (the recsys train batch)
+    of 524,288 uniform lookups (8 per bag on average, the kernel bench's
+    N/B), weights in [0, 1), bags sorted, every thousandth bag left empty.
+    Bit for bit; timed beside ``torch.nn.functional.embedding_bag``."""
+    from repro_torch.kernels.embedbag import (bag_runs, embedding_bag_kernel,
+                                              embedding_bag_plain)
+
+    flops_peak, bytes_peak = peaks
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    V, D, B, N = 39_884_406, 128, 65_536, 524_288
+    table = torch.randn((V, D), generator=gen, device="cuda")
+    idx = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    bags = torch.randint(0, B, (N,), generator=gen, device="cuda")
+    bags = torch.sort(bags + (bags % 1000 == 7)).values.to(torch.int32)
+    w = torch.rand((N,), generator=gen, device="cuda")
+    runs = bag_runs(bags, n_bags=B)
+    got = embedding_bag_kernel(idx, w, table, runs, n_bags=B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = embedding_bag_plain(idx, w, table, runs, n_bags=B)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    exact = bool(torch.equal(got, want))
+    empty = B - int(runs[0].numel())
+    ms = cuda_ms(torch, lambda: embedding_bag_kernel(idx, w, table, runs,
+                                                     n_bags=B), reps=10)
+    offsets = torch.searchsorted(bags, torch.arange(B, device="cuda",
+                                                    dtype=torch.int32))
+    idx64 = idx.long()
+    lib = torch.nn.functional.embedding_bag(
+        idx64, table, offsets, mode="sum", per_sample_weights=w)
+    library_err = float((lib - want).abs().max())
+    library_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        idx64, table, offsets, mode="sum", per_sample_weights=w), reps=10)
+    nbytes = 4.0 * N * D + 12.0 * N + 4.0 * B * D
+    ops = 2.0 * N * D
+    rec = {"kernel": "embedding_bag", "V": V, "D": D, "bags": B,
+           "lookups": N, "empty_bags": empty, "bitwise_equal": exact,
+           "max_abs_err": float((got - want).abs().max()), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.nn.functional.embedding_bag(mode='sum', "
+                      "per_sample_weights)",
+           "library_max_abs_err": library_err,
+           "bound_ms": max(ops / flops_peak, nbytes / bytes_peak) * 1e3,
+           "bound_by": "operations" if ops / flops_peak
+           >= nbytes / bytes_peak else "bytes",
+           "gbytes_per_s": nbytes / ms / 1e6}
+    log(json.dumps(rec))
+    check(exact, "embedding_bag: not bitwise equal to its plain version")
+    touched = torch.zeros(B, dtype=torch.bool, device="cuda")
+    touched[runs[2].long()] = True
+    check(empty > 0 and bool((got[~touched] == 0).all()),
+          "embedding_bag: the case has no empty bag, or one is not zero")
+    del table, idx, bags, w, runs, got, want, lib, offsets, idx64, touched
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_decode_attention(torch, peaks):
+    """Kernel 7 against its plain version at phi-4-mini's decode_32k shape
+    (``configs/phi4_mini_3_8b.py``: 24 heads over 8 KV heads, dh = 128;
+    ``configs/shapes.py``: B = 128, S = 32,768), bf16, a 17.2 GB cache;
+    lengths uniform in [1, S], then full.  Within one bf16 ulp; timed
+    beside ``scaled_dot_product_attention`` on the same cache (each KV
+    head's G query heads as its query rows, a length mask).  Then fp32 at
+    the kernel bench's shape, within rtol 1e-5."""
+    from repro_torch.kernels.decode_attn import (decode_attention_kernel,
+                                                 decode_attention_plain)
+
+    flops_peak, bytes_peak = peaks
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, H, KV, dh, S = 128, 24, 8, 128, 32_768
+    G = H // KV
+    bf16 = torch.bfloat16
+    q = torch.randn((B, H, dh), generator=gen, device="cuda", dtype=bf16)
+    k = torch.randn((B, S, KV, dh), generator=gen, device="cuda", dtype=bf16)
+    v = torch.randn((B, S, KV, dh), generator=gen, device="cuda", dtype=bf16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    main = None
+    for label, lengths in [
+            ("uniform", torch.randint(1, S + 1, (B,), generator=gen,
+                                      device="cuda", dtype=torch.int32)),
+            ("full", torch.full((B,), S, dtype=torch.int32, device="cuda"))]:
+        got = decode_attention_kernel(q, k, v, lengths, bs=512)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decode_attention_plain(q, k, v, lengths, bs=512)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ulps = bf16_ulps(torch, got, want)
+        max_err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(torch, lambda: decode_attention_kernel(
+            q, k, v, lengths, bs=512), reps=3)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qv, kv, vv = (q.view(B, KV, G, dh), k.permute(0, 2, 1, 3),
+                      v.permute(0, 2, 1, 3))
+        lib = sdpa(qv, kv, vv, attn_mask=mask).reshape(B, H, dh)
+        library_err = float((lib.float() - want.float()).abs().max())
+        library_ms = cuda_ms(torch, lambda: sdpa(qv, kv, vv, attn_mask=mask),
+                             reps=3)
+        rows = float(lengths.sum())
+        nbytes = 2.0 * 2 * rows * KV * dh + 2.0 * 2 * B * H * dh + 4.0 * B
+        ops = 4.0 * H * dh * rows
+        rec = {"kernel": "decode_attention", "lengths": label, "B": B,
+               "H": H, "KV": KV, "dh": dh, "S": S, "dtype": "bfloat16",
+               "bs": 512, "valid_rows": rows, "max_abs_err": max_err,
+               "max_bf16_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "scaled_dot_product_attention on [B, KV, S, dh] "
+                          "views, G query rows per KV head, length mask",
+               "library_max_abs_err": library_err,
+               "bound_ms": max(ops / flops_peak, nbytes / bytes_peak) * 1e3,
+               "bound_by": "operations" if ops / flops_peak
+               >= nbytes / bytes_peak else "bytes",
+               "gbytes_per_s": nbytes / ms / 1e6}
+        log(json.dumps(rec))
+        check(ulps <= 1.0, f"decode_attention {label}: {ulps} bf16 ulps "
+              f"from its plain version")
+        if main is None:
+            main = rec
+        del got, want, lib, mask, qv, kv, vv
+    del q, k, v
+    torch.cuda.empty_cache()
+    Bq, H, KV, S, dh = 4, 8, 4, 2048, 64
+    q = torch.randn((Bq, H, dh), generator=gen, device="cuda")
+    k = torch.randn((Bq, S, KV, dh), generator=gen, device="cuda")
+    v = torch.randn((Bq, S, KV, dh), generator=gen, device="cuda")
+    lengths = torch.tensor([0, 1, 1000, S], dtype=torch.int32, device="cuda")
+    got = decode_attention_kernel(q, k, v, lengths, bs=256)
+    want = decode_attention_plain(q, k, v, lengths, bs=256)
+    max_err, excess = within(torch, got, want, 1e-5, 1e-5)
+    log(json.dumps({"kernel": "decode_attention", "dtype": "float32",
+                    "B": Bq, "H": H, "KV": KV, "S": S, "dh": dh, "bs": 256,
+                    "lengths": lengths.tolist(), "max_abs_err": max_err}))
+    check(excess <= 1e-5, f"decode_attention fp32: error {max_err}")
+    return main
+
+
+def phase_bench(torch):
+    """The bench path: ``repro_torch.benchmarks.run --scale default --only
+    kernels,stream``, then ``bench_distance_topk`` at ``full``, with the
+    launch counts set to 0 before and read after.  The benches hold every
+    kernel they run against its plain version (or the oracle) at their own
+    shapes and raise outside the tolerance; ``run`` then returns 1."""
+    from repro_torch.benchmarks import bench_distance_topk
+    from repro_torch.benchmarks import run as bench_run
+
+    out = ROOT / "build" / "bench"
+    art = out / "BENCH_kernels.json"
+    if art.exists():
+        art.unlink()
+    t0 = time.perf_counter()
+    reset_counters()
+    rc = bench_run.main(["--scale", "default", "--only", "kernels,stream",
+                         "--out", str(out)])
+    check(rc == 0, "repro_torch.benchmarks.run failed (a row outside its "
+          "parity tolerance raises there)")
+    for row in bench_distance_topk.run("full", "cuda"):
+        log(row.csv())
+    launches = read_counters()
+    # Each kernel row ran on the card and held its gate (bench_kernels
+    # raises otherwise); check the artifact says so, row by row.
+    rows = {r["name"]: r["derived"]
+            for r in json.loads(art.read_text())["rows"]}
+    for name in ("stream_topk", "distance_matrix", "hamming_topk",
+                 "embedding_bag", "decode_attention"):
+        derived = rows.get(f"kernel/{name}_cuda", "")
+        check("bound_us=" in derived and "parity=" in derived,
+              f"bench: no parity-checked card row for {name}: {rows}")
+    check(rows["kernel/hamming_topk_cuda"].endswith("parity=bitwise:1")
+          and rows["kernel/embedding_bag_cuda"].endswith("parity=bitwise:1"),
+          f"bench: hamming_topk / embedding_bag not bit for bit: {rows}")
+    log(json.dumps({"phase": "bench", "launches": launches,
+                    "seconds": time.perf_counter() - t0}))
+    on_path = ("stream_topk", "hamming_topk", "distance_matrix",
+               "embedding_bag", "decode_attention")
+    check(all(launches[k] > 0 for k in on_path),
+          f"bench: a kernel of the path never launched: {launches}")
+    return launches
 
 
 def config():
@@ -536,14 +898,24 @@ EXACT = ("bruteforce", "bfh")
 
 
 def _counted():
-    from repro_torch.kernels.adc_scan import adc_scan_kernel
+    from repro_torch.kernels.adc_scan import adc_scan_kernel, adc_sums_kernel
+    from repro_torch.kernels.decode_attn import decode_attention_kernel
+    from repro_torch.kernels.distance import distance_matrix_kernel
     from repro_torch.kernels.distance_topk import stream_topk_kernel
-    from repro_torch.kernels.hamming import hamming_topk_kernel
-    from repro_torch.kernels.rerank_topk import rerank_topk_kernel
+    from repro_torch.kernels.embedbag import embedding_bag_kernel
+    from repro_torch.kernels.hamming import (hamming_dist_kernel,
+                                             hamming_topk_kernel)
+    from repro_torch.kernels.rerank_topk import (rerank_dist_kernel,
+                                                 rerank_topk_kernel)
 
     return {"stream_topk": stream_topk_kernel,
             "rerank_topk": rerank_topk_kernel,
-            "hamming_topk": hamming_topk_kernel, "adc_scan": adc_scan_kernel}
+            "hamming_topk": hamming_topk_kernel, "adc_scan": adc_scan_kernel,
+            "distance_matrix": distance_matrix_kernel,
+            "embedding_bag": embedding_bag_kernel,
+            "decode_attention": decode_attention_kernel,
+            "hamming_dist": hamming_dist_kernel,
+            "rerank_dist": rerank_dist_kernel, "adc_sums": adc_sums_kernel}
 
 
 def reset_counters():
@@ -675,6 +1047,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.benchmarks.common import PEAKS, form_factor
+
     name = torch.cuda.get_device_name(0)
     peaks = PEAKS[form_factor(name)]
     log(json.dumps({"phase": "device", "name": name,
@@ -689,6 +1063,9 @@ def main() -> int:
     k1 = phase_stream_topk(torch, peaks)
     k3 = phase_hamming_topk(torch, peaks, clock_hz)
     k4 = phase_adc_scan(torch, peaks, clock_hz)
+    k5 = phase_distance_matrix(torch, peaks)
+    k6 = phase_embedding_bag(torch, peaks)
+    k7 = phase_decode_attention(torch, peaks)
     from repro_torch.ann import ivf
     from repro_torch.data import get_dataset
 
@@ -699,6 +1076,7 @@ def main() -> int:
                       rerank_kernel=True, device="cuda")
     k2 = phase_rerank_topk(torch, peaks, state, ds.test)
     phase_breakdown(torch, state, ds.test)
+    routes = phase_routes(torch, state, ds.test)
     del state
     torch.cuda.empty_cache()
 
@@ -737,6 +1115,10 @@ def main() -> int:
     run_path(torch, "angular", ANGULAR,
              {"bruteforce": 1, "ivf": 3, "hyperplane": 3, "rpforest": 3},
              200_000, ("stream_topk", "rerank_topk"))
+    torch.cuda.empty_cache()
+
+    # 4. the bench path
+    bench_launches = phase_bench(torch)
 
     no_library = ("no single PyTorch call computes a fused distance + "
                   "(unique) top-k")
@@ -775,7 +1157,32 @@ def main() -> int:
          "bound_by": k4["bound_by"], "library_ms": None,
          "library_note": "no single PyTorch call computes a table-lookup "
                          "sum with a top-k"},
+        {"name": "distance_matrix", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_matrix.cu",
+         "replaces": "src/repro/kernels/distance/distance.py:75",
+         "launches": bench_launches["distance_matrix"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+         "library_note": k5["library"]},
+        {"name": "embedding_bag", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedbag/embedbag.py:49",
+         "launches": bench_launches["embedding_bag"],
+         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
+         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": k6["library_ms"],
+         "library_note": k6["library"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:69",
+         "launches": bench_launches["decode_attention"],
+         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
+         "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
+         "bound_by": k7["bound_by"], "library_ms": k7["library_ms"],
+         "library_note": k7["library"]},
     ]
+    log(json.dumps({"distances_out_routes": routes}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

@@ -16,7 +16,20 @@ Kernels:
                    ``repro.kernels.hamming.hamming_topk_pallas``)
     adc_scan/      ADC table-lookup scan + top-C (replaces
                    ``repro.kernels.adc_scan.adc_scan_pallas``)
-    distance/      only the distance epilogue and oracle kernel 1 needs
+    distance/      tiled distance matrix (replaces
+                   ``repro.kernels.distance.distance_matrix_pallas``), and
+                   the distance epilogue kernel 1 shares
+    embedbag/      embedding-bag weighted gather-sum (replaces
+                   ``repro.kernels.embedbag.embedding_bag_pallas``)
+    decode_attn/   single-token GQA decode attention with online softmax
+                   (replaces
+                   ``repro.kernels.decode_attn.decode_attention_pallas``)
+
+Kernels 1-4 keep their running top-k lists in shared memory, so they take
+k <= ``MAX_K`` (C <= ``adc_scan.MAX_C``).  Above that each public op takes
+a distances-out route: a second entry of the same source (or, for kernel
+1, the distance-matrix kernel) writes a chunk of queries' distances into a
+buffer of at most ``ROUTE_BYTES``, and a stable sort selects by (dist, id).
 
 Build: every ``csrc/*.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (one ``nvcc`` process per source, all
@@ -36,10 +49,15 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_K = 256          # largest k of the top-k kernels (see csrc/*.cu)
+# The distances-out routes (k above MAX_K, C above adc_scan.MAX_C) write a
+# [rows, n] float32 buffer per chunk of queries; this caps one chunk's.
+ROUTE_BYTES = 2 << 30
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, str] = {}
@@ -118,3 +136,29 @@ def check(status: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def by_query_chunks(rows: int, dists, ids: torch.Tensor, k: int, *,
+                    unique: bool = False):
+    """A distances-out route: the k smallest (dist, id) of each of ``rows``
+    query rows.  ``dists(start, end)`` writes the [end - start, L] float32
+    distances of query rows [start, end); ``ids`` is the [L] id row every
+    query shares or a [rows, L] window.  The chunks keep that buffer within
+    :data:`ROUTE_BYTES`.  Each chunk selects by a stable sort on (dist, id)
+    (``merge_topk_rounds``), or with ``unique`` each id once at its
+    smallest distance (``merge_topk_unique_rounds``)."""
+    # deferred: both modules import this package
+    from repro_torch.kernels.distance_topk.distance_topk import \
+        merge_topk_rounds
+    from repro_torch.kernels.rerank_topk.rerank_topk import \
+        merge_topk_unique_rounds
+
+    merge = merge_topk_unique_rounds if unique else merge_topk_rounds
+    step = max(1, ROUTE_BYTES // (4 * max(1, ids.shape[-1])))
+    parts = []
+    for s in range(0, rows, step):
+        e = min(s + step, rows)
+        part = ids[s:e] if ids.dim() == 2 else ids.expand(e - s, -1)
+        parts.append(merge(dists(s, e), part, k))
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))

@@ -13,7 +13,10 @@ over j in index order, (+inf, -1) where fewer than C rows exist.  Both
 versions add in the same order, so they agree bit for bit.
 
 The TPU kernel takes any C; this one takes C <= ``MAX_C`` (the running
-lists live in shared memory) and raises above it.
+lists live in shared memory) and raises above it.  For larger C,
+``ops.adc_scan`` uses the sums-out entry of the same source
+(``adc_sums_kernel``: the [b, n] sums, in the same order, into a buffer)
+and selects by (dist, row).
 """
 
 from __future__ import annotations
@@ -77,6 +80,17 @@ def adc_scan_plain(codes, luts, *, k: int, bq: int = 1024,
         outs_d.append(vals)
         outs_i.append(ids)
     return torch.cat(outs_d), torch.cat(outs_i)
+
+
+def adc_sums_plain(codes, luts, *, budget: int = 1 << 30):
+    """Plain version of the sums-out entry: the [b, n] ADC sums, each over
+    the subspaces in index order, in code tiles whose gathered [b, tile, m]
+    entries stay within ``budget`` bytes."""
+    n, m = codes.shape
+    b = luts.shape[0]
+    bn = max(256, budget // (4 * b * m))
+    return torch.cat([lookup(codes[s:s + bn], luts) for s in range(0, n, bn)],
+                     dim=1)
 
 
 def _pow2(x: int) -> int:
@@ -169,7 +183,51 @@ def adc_scan_kernel(codes, luts, *, k: int):
 
 adc_scan_kernel.launches = 0
 
+
+def adc_sums_kernel(codes, luts):
+    """Launch the sums-out entry of ``csrc/adc_scan.cu`` on CUDA tensors
+    (same contract as :func:`adc_sums_plain`).  G queries per block with
+    their tables in shared memory when G tables fit in ``SMEM_TARGET``,
+    else one query per block reading its table through the caches."""
+    if not codes.is_cuda:
+        raise ValueError("adc_sums kernel needs CUDA tensors")
+    dev = codes.device
+    n, m = codes.shape
+    b, _, K = luts.shape
+    if b < 1 or n < 1 or m < 1 or K < 1:
+        raise ValueError(f"empty operand: b={b}, n={n}, m={m}, K={K}")
+    _check("codes", codes, torch.uint8, (n, m), dev)
+    _check("luts", luts, torch.float32, (b, m, K), dev)
+    table = 4 * m * K
+    G = max(1, min(MAX_G, b, SMEM_TARGET // table))
+    lut_smem = G * table <= SMEM_TARGET
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    fn = _sums_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(codes.data_ptr(), luts.data_ptr(), out.data_ptr(), b, n,
+                    m, K, G, int(lut_smem), n, stream)
+    kernels.check(status, "adc_sums")
+    adc_sums_kernel.launches += 1
+    return out
+
+
+adc_sums_kernel.launches = 0
+
 _FN = None
+_SUMS_FN = None
+
+
+def _sums_fn():
+    global _SUMS_FN
+    if _SUMS_FN is None:
+        fn = kernels.load("adc_scan").adc_sums_launch
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_longlong, p]
+        fn.restype = ctypes.c_int
+        _SUMS_FN = fn
+    return _SUMS_FN
 
 
 def _launch_fn():

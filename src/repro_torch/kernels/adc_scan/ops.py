@@ -15,7 +15,10 @@
                       build flag): the hand-written Hopper kernel
                       ``csrc/adc_scan.cu`` on CUDA tensors, its plain
                       version on CPU tensors.  It keeps at most
-                      ``MAX_C`` candidates and raises above that.
+                      ``MAX_C`` candidates; above that (``n_cand=None``
+                      scans with C = n) the kernel's sums-out entry writes
+                      the [chunk, n] sums and a stable sort selects by
+                      (dist, row) (``sums_route``).
 
 ``adc_window_topk`` the candidate-window variant for list-organised indexes
                     (IVF): gathers each candidate's ``m``-byte code and
@@ -37,8 +40,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels.adc_scan.adc_scan import (MAX_C, adc_scan_kernel,
-                                                   adc_scan_plain, lookup,
+                                                   adc_scan_plain,
+                                                   adc_sums_kernel,
+                                                   adc_sums_plain, lookup,
                                                    sum_in_order)
 
 _FOLD_BUDGET = 32 << 20     # torch fold: per-block gathered LUT working set
@@ -76,10 +82,7 @@ def adc_scan(codes, luts, *, k: int, block: Optional[int] = None,
     kk = min(int(k), n)
     if use_kernel and n > 0 and b > 0:
         if kk > MAX_C:
-            raise ValueError(
-                f"the ADC scan kernel keeps at most {MAX_C} candidates per "
-                f"query, got C={kk} (n_cand=None scans with C = n); set "
-                f"n_cand / max_cand <= {MAX_C} or build without adc_kernel")
+            return sums_route(codes.contiguous(), luts.contiguous(), k=kk)
         fn = adc_scan_kernel if codes.is_cuda else adc_scan_plain
         return fn(codes.contiguous(), luts.contiguous(), k=kk)
     blk = block if block else pick_adc_block(b, n, m, kk)
@@ -91,6 +94,17 @@ def adc_scan(codes, luts, *, k: int, block: Optional[int] = None,
         return d, rows
 
     return chunked_topk(n, kk, blk, chunk, unique=True)
+
+
+def sums_route(codes, luts, *, k: int):
+    """The scan kernel's contract for any C = ``k``: the ADC sums out per
+    chunk of queries, then the k smallest (dist, row) by a stable sort.  A
+    full scan holds every row once, so this is the unique-by-id select."""
+    dist = adc_sums_kernel if codes.is_cuda else adc_sums_plain
+    rows = torch.arange(codes.shape[0], dtype=torch.int32,
+                        device=luts.device)
+    return kernels.by_query_chunks(luts.shape[0], lambda s, e: dist(
+        codes, luts[s:e]), rows, k)
 
 
 def adc_window_topk(codes, luts, cand, *, k: int, valid=None,

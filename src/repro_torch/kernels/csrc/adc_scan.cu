@@ -215,7 +215,67 @@ adc_scan_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// The sums-out entry behind ops.adc_scan for C > MAX_C: the [b, n] ADC
+// sums into a float32 buffer with row stride ldo, each summed over the
+// subspaces in index order from 0 as above (so bit for bit the sums the
+// scan kernel ranks); the wrapper then selects by (dist, row).  One thread
+// per row, G queries per block, their tables in shared memory when
+// lut_smem (else read through L1/L2).
+__global__ void __launch_bounds__(THREADS)
+adc_sums_kernel(const uint8_t* __restrict__ codes,
+                const float* __restrict__ luts, float* __restrict__ out,
+                int b, int n, int m, int K, int G, int lut_smem,
+                long long ldo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut_s = reinterpret_cast<float*>(smem);          // [G][m][K]
+  const int lut_len = m * K;
+  const int q0 = blockIdx.y * G;
+  const int gq = min(G, b - q0);
+  const float* lut_q = luts + (size_t)q0 * lut_len;
+  if (lut_smem) {
+    for (int e = threadIdx.x; e < gq * lut_len; e += THREADS)
+      lut_s[e] = lut_q[e];
+    __syncthreads();
+  }
+  const float* lut_base = lut_smem ? lut_s : lut_q;
+  const int row = blockIdx.x * TILE + threadIdx.x;
+  if (row >= n) return;
+  const uint8_t* code = codes + (size_t)row * m;
+  for (int g = 0; g < gq; ++g) {
+    const float* L = lut_base + (size_t)g * lut_len;
+    float a = 0.0f;
+    for (int j = 0; j < m; ++j) a = __fadd_rn(a, L[j * K + __ldg(code + j)]);
+    out[(size_t)(q0 + g) * ldo + row] = a;
+  }
+}
+
 }  // namespace
+
+extern "C" int adc_sums_launch(const uint8_t* codes, const float* luts,
+                               float* out, int b, int n, int m, int K, int G,
+                               int lut_smem, long long ldo, void* stream) {
+  if (b < 1 || n < 1 || m < 1 || K < 1 || G < 1 || G > MAX_G || ldo < n)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lut_smem ? sizeof(float) * (size_t)G * m * K : 0;
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      adc_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  // grid.y holds at most 65,535 query groups: launch in slices of queries
+  const int slice = 65535 * G;
+  for (int q0 = 0; q0 < b; q0 += slice) {
+    const int rows = b - q0 < slice ? b - q0 : slice;
+    dim3 grid((n + TILE - 1) / TILE, (rows + G - 1) / G);
+    adc_sums_kernel<<<grid, THREADS, smem, s>>>(
+        codes, luts + (size_t)q0 * m * K, out + (size_t)q0 * ldo, rows, n, m,
+        K, G, lut_smem, ldo);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
 
 extern "C" int adc_scan_launch(const uint8_t* codes, const float* luts,
                                float* part_d, int* part_i, float* out_d,

@@ -156,7 +156,68 @@ hamming_topk_kernel(const uint32_t* __restrict__ Q,
   }
 }
 
+// The distances-out entry behind ops.hamming_topk for k > MAX_K: the
+// [nq, n] popcount distances into a float32 buffer with row stride ldo,
+// rows at or past n_valid at +inf; the wrapper then selects by (dist, row).
+// One thread per corpus row, DQ queries per block (their words staged in
+// shared memory), so each row's words are read once per DQ queries.
+constexpr int DQ = 8;
+
+__global__ void __launch_bounds__(THREADS)
+hamming_dist_kernel(const uint32_t* __restrict__ Q,
+                    const uint32_t* __restrict__ X, float* __restrict__ out,
+                    int nq, int n, int w, int n_valid, long long ldo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* qs = reinterpret_cast<uint32_t*>(smem);     // [DQ][w]
+  const int q0 = blockIdx.y * DQ;
+  const int gq = min(DQ, nq - q0);
+  for (int e = threadIdx.x; e < gq * w; e += THREADS)
+    qs[e] = Q[(size_t)q0 * w + e];
+  __syncthreads();
+  const int row = blockIdx.x * THREADS + threadIdx.x;
+  if (row >= n) return;
+  int acc[DQ];
+#pragma unroll
+  for (int g = 0; g < DQ; ++g) acc[g] = 0;
+  for (int c = 0; c < w; ++c) {
+    const uint32_t xw = __ldg(X + (size_t)row * w + c);
+#pragma unroll
+    for (int g = 0; g < DQ; ++g)
+      if (g < gq) acc[g] += __popc(qs[g * w + c] ^ xw);
+  }
+#pragma unroll
+  for (int g = 0; g < DQ; ++g)
+    if (g < gq)
+      out[(size_t)(q0 + g) * ldo + row] =
+          row < n_valid ? (float)acc[g] : INFINITY;
+}
+
 }  // namespace
+
+extern "C" int hamming_dist_launch(const uint32_t* Q, const uint32_t* X,
+                                   float* out, int nq, int n, int w,
+                                   int n_valid, long long ldo, void* stream) {
+  if (nq < 1 || n < 1 || w < 1 || n_valid < 0 || ldo < n)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(uint32_t) * (size_t)DQ * w;
+  cudaError_t e = cudaFuncSetAttribute(
+      hamming_dist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  // grid.y holds at most 65,535 query groups: launch in slices of queries
+  constexpr int SLICE = 65535 * DQ;
+  for (int q0 = 0; q0 < nq; q0 += SLICE) {
+    const int rows = nq - q0 < SLICE ? nq - q0 : SLICE;
+    dim3 grid((n + THREADS - 1) / THREADS, (rows + DQ - 1) / DQ);
+    hamming_dist_kernel<<<grid, THREADS, smem, s>>>(
+        Q + (size_t)q0 * w, X, out + (size_t)q0 * ldo, rows, n, w, n_valid,
+        ldo);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
 
 extern "C" int hamming_topk_launch(const uint32_t* Q, const uint32_t* X,
                                    float* part_d, int* part_i, float* out_d,

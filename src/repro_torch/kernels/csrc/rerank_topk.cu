@@ -102,6 +102,24 @@ __device__ __forceinline__ int row_hamming(const uint32_t* __restrict__ X,
   return warp_sum_int(acc);
 }
 
+// The exact distance of one candidate row; every lane ends with it.
+__device__ __forceinline__ float slot_distance(const void* __restrict__ Xv,
+                                               const uint32_t* qwords,
+                                               int row, float qn, float pen,
+                                               int d, bool vec4, int mode,
+                                               int lane) {
+  if (mode == HAM) {
+    const int h = row_hamming(reinterpret_cast<const uint32_t*>(Xv), qwords,
+                              row, d, vec4, lane);
+    return __fadd_rn((float)h, pen);
+  }
+  const float cross =
+      row_dot(reinterpret_cast<const float*>(Xv),
+              reinterpret_cast<const float*>(qwords), row, d, vec4, lane);
+  return (mode == L2SQ) ? __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, cross)), pen)
+                        : __fadd_rn(__fsub_rn(1.0f, cross), pen);
+}
+
 __global__ void __launch_bounds__(THREADS)
 rerank_topk_kernel(const int* __restrict__ rows, const void* __restrict__ Qv,
                    const float* __restrict__ qsq, const int* __restrict__ ids,
@@ -141,19 +159,8 @@ rerank_topk_kernel(const int* __restrict__ rows, const void* __restrict__ Qv,
       const int ir = __shfl_sync(FULL, id, r);
       const int rr = __shfl_sync(FULL, row, r);
       if (!(pr < INFINITY) || ir < 0) continue;  // can never win: no load
-      float dist;
-      if (mode == HAM) {
-        const int h = row_hamming(reinterpret_cast<const uint32_t*>(Xv),
-                                  qwords, rr, d, vec4, lane);
-        dist = __fadd_rn((float)h, pr);
-      } else {
-        const float cross =
-            row_dot(reinterpret_cast<const float*>(Xv),
-                    reinterpret_cast<const float*>(qwords), rr, d, vec4, lane);
-        dist = (mode == L2SQ)
-                   ? __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, cross)), pr)
-                   : __fadd_rn(__fsub_rn(1.0f, cross), pr);
-      }
+      const float dist =
+          slot_distance(Xv, qwords, rr, qn, pr, d, vec4, mode, lane);
       if (lane == r) mine = dist;
     }
     const bool pass = beats(mine, id, ld[k - 1], li[k - 1]);
@@ -173,7 +180,72 @@ rerank_topk_kernel(const int* __restrict__ rows, const void* __restrict__ Qv,
   }
 }
 
+// The window distances-out entry behind ops.rerank_topk for k > MAX_K:
+// the [b, C] distances of the window into a float32 buffer, with the
+// kernel's arithmetic; masked slots (+inf penalty or id -1) are +inf and
+// never loaded.  The wrapper then makes the unique-by-id select.  One warp
+// per query, as above.
+__global__ void __launch_bounds__(THREADS)
+rerank_dist_kernel(const int* __restrict__ rows, const void* __restrict__ Qv,
+                   const float* __restrict__ qsq, const int* __restrict__ ids,
+                   const float* __restrict__ pen, const void* __restrict__ Xv,
+                   float* __restrict__ out, int b, int C, int d, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d_pad = (d + 3) / 4 * 4;
+  uint32_t* qwords = reinterpret_cast<uint32_t*>(smem) + warp * d_pad;
+  const int q = blockIdx.x * WARPS + warp;
+  if (q >= b) return;
+  const uint32_t* Qw = reinterpret_cast<const uint32_t*>(Qv);
+  for (int c = lane; c < d; c += 32) qwords[c] = Qw[(size_t)q * d + c];
+  __syncwarp();
+  const bool vec4 = (d % 4) == 0;
+  const float qn = (mode == L2SQ) ? qsq[q] : 0.0f;
+  const size_t base_q = (size_t)q * C;
+  for (int base = 0; base < C; base += 32) {
+    const int j = base + lane;
+    int row = 0, id = -1;
+    float p = INFINITY;
+    if (j < C) {
+      row = rows[base_q + j];
+      id = ids[base_q + j];
+      p = pen[base_q + j];
+    }
+    float mine = INFINITY;
+    const int m = min(32, C - base);
+    for (int r = 0; r < m; ++r) {
+      const float pr = __shfl_sync(FULL, p, r);
+      const int ir = __shfl_sync(FULL, id, r);
+      const int rr = __shfl_sync(FULL, row, r);
+      if (!(pr < INFINITY) || ir < 0) continue;
+      const float dist =
+          slot_distance(Xv, qwords, rr, qn, pr, d, vec4, mode, lane);
+      if (lane == r) mine = dist;
+    }
+    if (j < C) out[base_q + j] = mine;
+  }
+}
+
 }  // namespace
+
+extern "C" int rerank_dist_launch(const int* rows, const void* Q,
+                                  const float* qsq, const int* ids,
+                                  const float* pen, const void* X, float* out,
+                                  int b, int C, int d, int mode,
+                                  void* stream) {
+  if (b < 1 || C < 1 || d < 1 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  const int d_pad = (d + 3) / 4 * 4;
+  const size_t smem = sizeof(uint32_t) * (size_t)WARPS * d_pad;
+  cudaError_t e = cudaFuncSetAttribute(
+      rerank_dist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  rerank_dist_kernel<<<(b + WARPS - 1) / WARPS, THREADS, smem, s>>>(
+      rows, Q, qsq, ids, pen, X, out, b, C, d, mode);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int rerank_topk_launch(const int* rows, const void* Q,
                                   const float* qsq, const int* ids,

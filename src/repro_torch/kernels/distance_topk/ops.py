@@ -11,12 +11,23 @@ The TPU wrapper pads Q and X to tile multiples for ``BlockSpec``; the CUDA
 kernel masks its ragged edges itself, so nothing is padded or copied here.
 CUDA tensors go to the kernel (``stream_topk_kernel``), CPU tensors to its
 plain version.
+
+Above ``kernels.MAX_K`` (the kernel keeps its running lists in shared
+memory) both go through the distances-out route instead: the distance
+matrix kernel (its plain version on the CPU) writes the [chunk, n]
+distances of a chunk of queries, with the same ``xsq`` operand and bit for
+bit the streaming kernel's arithmetic, and a stable sort selects by
+(dist, id) as ``merge_topk_rounds`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels
+from repro_torch.kernels.distance.distance import (distance_matrix_kernel,
+                                                   distance_matrix_plain,
+                                                   norm_operand)
 from repro_torch.kernels.distance_topk.distance_topk import (
     stream_topk_kernel, stream_topk_plain)
 
@@ -25,21 +36,19 @@ _METRIC_TO_MODE = {"euclidean": "l2sq", "angular": "cos", "ip": "ip",
 
 
 def _run(Q, X, qsq, xsq, mode: str, k: int):
+    if k > kernels.MAX_K:
+        return distances_route(Q, X, qsq, xsq, mode=mode, k=k)
     fn = stream_topk_kernel if X.is_cuda else stream_topk_plain
     return fn(Q, X, qsq, xsq, mode=mode, k=k)
 
 
-def _corpus_row(X, mode: str):
-    """The xsq operand: squared norms for l2sq, a zero penalty otherwise."""
-    if mode == "l2sq":
-        return torch.sum(X * X, dim=1)
-    return torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
-
-
-def _query_col(Q, mode: str):
-    if mode == "l2sq":
-        return torch.sum(Q * Q, dim=1)
-    return torch.zeros(Q.shape[0], dtype=torch.float32, device=Q.device)
+def distances_route(Q, X, qsq, xsq, *, mode: str, k: int):
+    """The streaming kernel's contract for any k: distances out per chunk
+    of queries, then the k smallest (dist, id) by a stable sort."""
+    dist = distance_matrix_kernel if X.is_cuda else distance_matrix_plain
+    ids = torch.arange(X.shape[0], dtype=torch.int32, device=X.device)
+    return kernels.by_query_chunks(Q.shape[0], lambda s, e: dist(
+        Q[s:e], X, qsq[s:e], xsq, mode=mode), ids, k)
 
 
 def stream_topk(Q, X, *, k: int, metric: str = "euclidean",
@@ -60,11 +69,11 @@ def stream_topk(Q, X, *, k: int, metric: str = "euclidean",
     Q = Q.contiguous()
     n = X.shape[0]
     k = min(k, n)
-    xsq = _corpus_row(X, mode)
+    xsq = norm_operand(X, mode)
     if valid is not None:
         keep = torch.as_tensor(valid, device=X.device).to(torch.bool)
         xsq = torch.where(keep, xsq, torch.full_like(xsq, float("inf")))
-    vals, idx = _run(Q, X, _query_col(Q, mode), xsq.contiguous(), mode, k)
+    vals, idx = _run(Q, X, norm_operand(Q, mode), xsq.contiguous(), mode, k)
     if row_ids is not None:
         alive = torch.isfinite(vals)
         rid = torch.as_tensor(row_ids, device=X.device).to(torch.int32)
@@ -91,12 +100,12 @@ def stream_topk_batched(Q, X, *, k: int, metric: str = "euclidean",
     n = X.shape[0]
     k = min(k, n)
     query_block = max(1, min(query_block, nq))
-    xsq = _corpus_row(X, mode)
+    xsq = norm_operand(X, mode)
     vals_out, ids_out = [], []
     for s in range(0, nq, query_block):
         blk = Q[s:s + query_block].to(device=X.device, dtype=torch.float32)
         blk = blk.contiguous()
-        v, i = _run(blk, X, _query_col(blk, mode), xsq, mode, k)
+        v, i = _run(blk, X, norm_operand(blk, mode), xsq, mode, k)
         vals_out.append(v)
         ids_out.append(i)
     vals, ids = torch.cat(vals_out), torch.cat(ids_out)

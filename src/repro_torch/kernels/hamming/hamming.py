@@ -57,6 +57,19 @@ def hamming_topk_plain(Q, X, n_valid: int, *, k: int, bq: int = 1024,
     return torch.cat(outs_d), torch.cat(outs_i)
 
 
+def hamming_dist_plain(Q, X, n_valid: int):
+    """Plain version of the distances-out entry: the [nq, n] popcount
+    distances as float32, rows at or past ``n_valid`` at +inf."""
+    d = torch.zeros((Q.shape[0], X.shape[0]), dtype=torch.int64,
+                    device=X.device)
+    for c in range(Q.shape[1]):                  # one word at a time
+        d += popcount32(torch.bitwise_xor(Q[:, c:c + 1], X[None, :, c]))
+    d = d.to(torch.float32)
+    rows = torch.arange(X.shape[0], device=X.device)
+    return torch.where(rows[None, :] < n_valid, d,
+                       torch.full_like(d, float("inf")))
+
+
 def _check(name, t, shape, device):
     if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
@@ -103,7 +116,47 @@ def hamming_topk_kernel(Q, X, n_valid: int, *, k: int):
 
 hamming_topk_kernel.launches = 0
 
+
+def hamming_dist_kernel(Q, X, n_valid: int):
+    """Launch the distances-out entry of ``csrc/hamming_topk.cu`` on CUDA
+    tensors (same contract as :func:`hamming_dist_plain`)."""
+    if not X.is_cuda:
+        raise ValueError("hamming_dist kernel needs CUDA tensors")
+    dev = X.device
+    nq, w = Q.shape
+    n = X.shape[0]
+    if nq < 1 or n < 1 or w < 1:
+        raise ValueError(f"empty operand: nq={nq}, n={n}, w={w}")
+    _check("Q", Q, (nq, w), dev)
+    _check("X", X, (n, w), dev)
+    n_valid = max(0, min(int(n_valid), n))
+    out = torch.empty((nq, n), dtype=torch.float32, device=dev)
+    fn = _dist_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(Q.data_ptr(), X.data_ptr(), out.data_ptr(), nq, n, w,
+                    n_valid, n, stream)
+    kernels.check(status, "hamming_dist")
+    hamming_dist_kernel.launches += 1
+    return out
+
+
+hamming_dist_kernel.launches = 0
+
 _FN = None
+_DIST_FN = None
+
+
+def _dist_fn():
+    global _DIST_FN
+    if _DIST_FN is None:
+        fn = kernels.load("hamming_topk").hamming_dist_launch
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_longlong, p]
+        fn.restype = ctypes.c_int
+        _DIST_FN = fn
+    return _DIST_FN
 
 
 def _launch_fn():

@@ -12,6 +12,9 @@ paths with identical select semantics:
     hand-written Hopper kernel ``csrc/rerank_topk.cu`` on CUDA tensors, its
     plain PyTorch version on CPU tensors.  This wrapper pre-folds masking
     into the penalty and id operands, exactly as the TPU wrapper does.
+    Above ``kernels.MAX_K`` (the kernel's lists live in shared memory) the
+    kernel's window distances-out entry writes the [chunk, C] distances
+    and a unique-by-id select follows (``distances_route``).
 
 Both return what ``topk_unique`` over the materialized gather returns
 (``ref.rerank_topk_ref``): masked (-1) candidates never win, duplicate ids
@@ -25,9 +28,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.bits import popcount32, words_to_tensor
-from repro_torch.kernels.rerank_topk.rerank_topk import (rerank_topk_kernel,
-                                                         rerank_topk_plain)
+from repro_torch.kernels.rerank_topk.rerank_topk import (
+    rerank_dist_kernel, rerank_dist_plain, rerank_topk_kernel,
+    rerank_topk_plain)
 
 _FOLD_BUDGET = 32 << 20     # torch fold: gathered-chunk working set
 
@@ -111,6 +116,8 @@ def rerank_topk(Q, X, cand, *, k: int, metric: str, xsq=None, row_ids=None,
 
     if use_kernel and b > 0:
         ops = kernel_operands(Q, X, qsq, xsq, cand, bad, row_ids, metric, kk)
+        if kk > kernels.MAX_K:
+            return distances_route(**ops)
         fn = rerank_topk_kernel if X.is_cuda else rerank_topk_plain
         return fn(**ops)
 
@@ -123,6 +130,17 @@ def rerank_topk(Q, X, cand, *, k: int, metric: str, xsq=None, row_ids=None,
                                 bad[:, s:s + size], row_ids, metric)
 
     return chunked_topk(C, kk, blk, chunk, unique=True)
+
+
+def distances_route(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
+                    k: int):
+    """The kernel's contract for any k: the window's distances out per
+    chunk of queries (masked slots at +inf), then the unique-by-id select
+    ``merge_topk_unique_rounds`` (the canonical ``topk_unique``)."""
+    dist = rerank_dist_kernel if X.is_cuda else rerank_dist_plain
+    return kernels.by_query_chunks(cand_rows.shape[0], lambda s, e: dist(
+        cand_rows[s:e], Q[s:e], qsq[s:e], cand_ids[s:e], pen[s:e], X,
+        mode=mode), cand_ids, k, unique=True)
 
 
 def kernel_operands(Q, X, qsq, xsq, cand, bad, row_ids, metric: str,

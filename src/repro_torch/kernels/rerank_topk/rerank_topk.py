@@ -84,6 +84,23 @@ def rerank_topk_plain(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
     return torch.cat(outs_d), torch.cat(outs_i)
 
 
+def rerank_dist_plain(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
+                      bq: int = 256):
+    """Plain version of the window distances-out entry: the [b, C]
+    distances of the window, +inf at masked slots (+inf penalty or id
+    -1), queries in blocks of ``bq``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    outs = []
+    for q0 in range(0, cand_rows.shape[0], bq):
+        q1 = min(q0 + bq, cand_rows.shape[0])
+        d = _block_distances(Q[q0:q1], X, qsq[q0:q1], cand_rows[q0:q1],
+                             pen[q0:q1], mode)
+        outs.append(torch.where(cand_ids[q0:q1] < 0,
+                                torch.full_like(d, float("inf")), d))
+    return torch.cat(outs)
+
+
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
@@ -93,15 +110,9 @@ def _check(name, t, dtype, shape, device):
             f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def rerank_topk_kernel(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
-                       k: int):
-    """Launch the CUDA kernel on CUDA tensors (same contract as
-    :func:`rerank_topk_plain`).  Raises on anything it does not take."""
+def _check_operands(cand_rows, Q, qsq, cand_ids, pen, X, mode: str):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if not 1 <= k <= kernels.MAX_K:
-        raise ValueError(f"rerank_topk kernel takes 1 <= k <= "
-                         f"{kernels.MAX_K}, got k={k}")
     if not X.is_cuda:
         raise ValueError("rerank_topk kernel needs CUDA tensors")
     dev = X.device
@@ -118,6 +129,17 @@ def rerank_topk_kernel(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
     _check("X", X, word, (n, d), dev)
     if X.data_ptr() % 16:
         raise ValueError("rerank_topk kernel: X must be 16-byte aligned")
+    return dev, b, C, d
+
+
+def rerank_topk_kernel(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
+                       k: int):
+    """Launch the CUDA kernel on CUDA tensors (same contract as
+    :func:`rerank_topk_plain`).  Raises on anything it does not take."""
+    if not 1 <= k <= kernels.MAX_K:
+        raise ValueError(f"rerank_topk kernel takes 1 <= k <= "
+                         f"{kernels.MAX_K}, got k={k}")
+    dev, b, C, d = _check_operands(cand_rows, Q, qsq, cand_ids, pen, X, mode)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _launch_fn()
@@ -134,7 +156,39 @@ def rerank_topk_kernel(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
 
 rerank_topk_kernel.launches = 0
 
+
+def rerank_dist_kernel(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str):
+    """Launch the window distances-out entry of ``csrc/rerank_topk.cu`` on
+    CUDA tensors (same contract as :func:`rerank_dist_plain`)."""
+    dev, b, C, d = _check_operands(cand_rows, Q, qsq, cand_ids, pen, X, mode)
+    out = torch.empty((b, C), dtype=torch.float32, device=dev)
+    fn = _dist_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(cand_rows.data_ptr(), Q.data_ptr(), qsq.data_ptr(),
+                    cand_ids.data_ptr(), pen.data_ptr(), X.data_ptr(),
+                    out.data_ptr(), b, C, d, MODES[mode], stream)
+    kernels.check(status, "rerank_dist")
+    rerank_dist_kernel.launches += 1
+    return out
+
+
+rerank_dist_kernel.launches = 0
+
 _FN = None
+_DIST_FN = None
+
+
+def _dist_fn():
+    global _DIST_FN
+    if _DIST_FN is None:
+        fn = kernels.load("rerank_topk").rerank_dist_launch
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _DIST_FN = fn
+    return _DIST_FN
 
 
 def _launch_fn():

@@ -36,12 +36,12 @@ def _ints(rng, shape):
 def test_stream_topk_kernel_matches_plain(cuda, mode, k):
     from repro_torch.kernels.distance_topk import (stream_topk_kernel,
                                                    stream_topk_plain)
-    from repro_torch.kernels.distance_topk.ops import _corpus_row, _query_col
+    from repro_torch.kernels.distance.distance import norm_operand
 
     rng = np.random.default_rng(k)
     Q = _ints(rng, (131, 37)).to(cuda)
     X = _ints(rng, (5003, 37)).to(cuda)
-    qsq, xsq = _query_col(Q, mode), _corpus_row(X, mode)
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
     masked = torch.as_tensor(rng.random(5003) < 0.1).to(cuda)
     xsq[masked] = float("inf")                          # masked rows
     before = stream_topk_kernel.launches
@@ -179,3 +179,246 @@ def test_new_paths_run_their_kernels_on_cuda(cuda):
     assert hamming_topk_kernel.launches == before + 1
     assert (i[:, 0].cpu().numpy() == np.arange(5)).all()
     assert (d[:, 0] == 0).all()
+
+
+# ------------------------------------------- kernels 5-7 and the k / C routes
+def _bf16_ulps(got, want):
+    """Largest distance between bf16 tensors in units of want's last place
+    (a bf16 ulp at |w| is 2**(floor(log2 |w|) - 7))."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    mag = torch.clamp_min(w.abs(), 2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "ip", "cos"])
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+def test_distance_matrix_kernel_matches_plain(cuda, mode, kind):
+    from repro_torch.kernels.distance import (distance_matrix,
+                                              distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(len(mode))
+    make = _ints if kind == "int" else (lambda r, s: torch.as_tensor(
+        r.standard_normal(s).astype(np.float32)))
+    Q, X = make(rng, (131, 37)).to(cuda), make(rng, (5003, 37)).to(cuda)
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+    before = distance_matrix_kernel.launches
+    got = distance_matrix(Q, X, mode=mode)
+    torch.cuda.synchronize()
+    assert distance_matrix_kernel.launches == before + 1
+    want = distance_matrix_plain(Q, X, qsq, xsq, mode=mode)
+    if kind == "int":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "ip", "cos"])
+def test_distance_route_equals_stream_kernel_bitwise(cuda, mode):
+    """At k = 256 the streaming kernel and the distances-out route through
+    kernel 5 give the same distances and ids, bit for bit."""
+    from repro_torch.kernels.distance_topk import stream_topk_kernel
+    from repro_torch.kernels.distance.distance import norm_operand
+    from repro_torch.kernels.distance_topk.ops import distances_route
+
+    rng = np.random.default_rng(5)
+    Q = torch.as_tensor(rng.standard_normal((77, 45)).astype(np.float32))
+    X = torch.as_tensor(rng.standard_normal((6001, 45)).astype(np.float32))
+    Q, X = Q.to(cuda), X.to(cuda)
+    if mode == "cos":
+        Q, X = Q / Q.norm(dim=1, keepdim=True), X / X.norm(dim=1, keepdim=True)
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+    xsq[torch.as_tensor(rng.random(6001) < 0.1).to(cuda)] = float("inf")
+    a = stream_topk_kernel(Q, X, qsq, xsq, mode=mode, k=256)
+    b = distances_route(Q, X, qsq, xsq, mode=mode, k=256)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("k", [257, 1000])
+def test_stream_topk_above_max_k_matches_plain(cuda, k):
+    from repro_torch.kernels.distance import distance_matrix_kernel
+    from repro_torch.kernels.distance_topk import (stream_topk,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(k)
+    Q, X = _ints(rng, (50, 21)).to(cuda), _ints(rng, (3001, 21)).to(cuda)
+    before = distance_matrix_kernel.launches
+    gd, gi = stream_topk(Q, X, k=k)
+    assert distance_matrix_kernel.launches == before + 1
+    wd, wi = stream_topk_plain(Q, X, norm_operand(Q, "l2sq"),
+                               norm_operand(X, "l2sq"), mode="l2sq", k=k)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("k", [257, 1000])
+def test_hamming_topk_above_max_k_matches_plain(cuda, k):
+    from repro_torch.bits import words_to_tensor
+    from repro_torch.kernels.hamming import (hamming_dist_kernel,
+                                             hamming_topk, hamming_topk_plain)
+
+    rng = np.random.default_rng(k)
+    X = words_to_tensor(rng.integers(0, 2**32, (2001, 5), dtype=np.uint64)
+                        .astype(np.uint32), cuda)
+    Q = X[:37].clone()
+    before = hamming_dist_kernel.launches
+    gd, gi = hamming_topk(Q, X, k=k)
+    assert hamming_dist_kernel.launches == before + 1
+    wd, wi = hamming_topk_plain(Q, X, 2001, k=k)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "angular", "hamming"])
+def test_rerank_topk_above_max_k_matches_plain(cuda, metric):
+    from repro_torch.bits import words_to_tensor
+    from repro_torch.kernels.rerank_topk import (rerank_dist_kernel,
+                                                 rerank_dist_plain,
+                                                 rerank_topk,
+                                                 rerank_topk_plain)
+    from repro_torch.kernels.rerank_topk.ops import kernel_operands
+
+    rng = np.random.default_rng(11)
+    b, C, n, k = 21, 1301, 900, 300
+    if metric == "hamming":
+        X = words_to_tensor(rng.integers(0, 2**32, (n, 5), dtype=np.uint64)
+                            .astype(np.uint32), cuda)
+        Q = X[:b].clone()
+        xsq = None
+    else:
+        X, Q = _ints(rng, (n, 33)).to(cuda), _ints(rng, (b, 33)).to(cuda)
+        xsq = torch.sum(X * X, dim=1) if metric == "euclidean" else None
+    cand = torch.as_tensor(rng.integers(-1, n, (b, C)).astype(np.int32))
+    cand[:, 600:700] = cand[:, :100]               # duplicates far apart
+    cand = cand.to(cuda)
+    before = rerank_dist_kernel.launches
+    gd, gi = rerank_topk(Q, X, cand, k=k, metric=metric, xsq=xsq,
+                         use_kernel=True)
+    assert rerank_dist_kernel.launches == before + 1
+    qsq = torch.sum(Q * Q, dim=1, keepdim=True) \
+        if metric == "euclidean" else None
+    ops = kernel_operands(Q, X, qsq, xsq, cand, cand < 0, None, metric, k)
+    wd, wi = rerank_topk_plain(**ops)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+    ops.pop("k")
+    assert torch.equal(rerank_dist_kernel(**ops), rerank_dist_plain(**ops))
+
+
+@pytest.mark.parametrize("m,K", [(16, 256), (128, 256), (8, 64)])
+def test_adc_scan_above_max_c_matches_plain(cuda, m, K):
+    """C = 1,500 through the sums-out entry: PQ tables in shared memory,
+    int8-sized tables read through the caches, a byte-path width."""
+    from repro_torch.kernels.adc_scan import (MAX_C, adc_scan,
+                                              adc_scan_plain, adc_sums_kernel,
+                                              adc_sums_plain)
+
+    rng = np.random.default_rng(m)
+    codes = torch.as_tensor(rng.integers(0, K, (3001, m)).astype(np.uint8))
+    luts = torch.as_tensor(rng.integers(0, 7, (9, m, K)).astype(np.float32))
+    codes, luts = codes.to(cuda), luts.to(cuda)
+    luts = luts + torch.rand(luts.shape, device=cuda)
+    before = adc_sums_kernel.launches
+    gd, gi = adc_scan(codes, luts, k=1500, use_kernel=True)
+    assert adc_sums_kernel.launches == before + 1 and 1500 > MAX_C
+    wd, wi = adc_scan_plain(codes, luts, k=1500)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+    assert torch.equal(adc_sums_kernel(codes, luts),
+                       adc_sums_plain(codes, luts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["unsorted", "sorted_runs", "empty_bags"])
+def test_embedding_bag_kernel_matches_plain(cuda, dtype, case):
+    from repro_torch.kernels.embedbag import (bag_runs, embedding_bag,
+                                              embedding_bag_kernel,
+                                              embedding_bag_plain)
+
+    rng = np.random.default_rng(3)
+    V, D, N, B = 500, 200, 3000, 97
+    table = torch.as_tensor(rng.standard_normal((V, D)).astype(np.float32))
+    table = table.to(device=cuda, dtype=dtype)
+    idx = rng.integers(0, V, N)
+    bags = rng.integers(0, B, N)
+    if case == "empty_bags":
+        bags = bags % 40 * 2                      # odd bags stay empty
+    w = rng.random(N).astype(np.float32)
+    sort = case == "sorted_runs"
+    if sort:
+        bags = np.array([0, 1, 0] * (N // 3))     # the last run wins
+    before = embedding_bag_kernel.launches
+    got = embedding_bag(table, idx, bags, w, n_bags=B, assume_sorted=sort)
+    assert embedding_bag_kernel.launches == before + 1
+    assert got.dtype == dtype
+    t = torch.as_tensor
+    bt = t(bags, dtype=torch.int32, device=cuda)
+    order = torch.arange(N, device=cuda) if sort \
+        else torch.sort(bt, stable=True).indices
+    want = embedding_bag_plain(t(idx, dtype=torch.int32, device=cuda)[order],
+                               t(w, device=cuda)[order], table,
+                               bag_runs(bt[order], n_bags=B), n_bags=B)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,bs,KV,G,dh", [(257, 64, 2, 4, 32),
+                                          (1000, 512, 3, 3, 128),
+                                          (64, 512, 1, 8, 64)])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, S, bs, KV, G, dh):
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_kernel,
+                                                 decode_attention_plain)
+
+    rng = np.random.default_rng(S)
+    B = 5
+    q = torch.as_tensor(rng.standard_normal((B, KV * G, dh)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    k = torch.as_tensor(rng.standard_normal((B, S, KV, dh)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    v = torch.as_tensor(rng.standard_normal((B, S, KV, dh)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    lengths = torch.tensor([0, 1, S // 2, S, S + 7], dtype=torch.int32,
+                           device=cuda)
+    before = decode_attention_kernel.launches
+    got = decode_attention(q, k, v, lengths, bs=bs)
+    assert decode_attention_kernel.launches == before + 1
+    want = decode_attention_plain(q, k, v, lengths, bs=min(bs, S))
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("entry", ["distance_matrix", "hamming_dist",
+                                   "adc_sums"])
+def test_distances_out_entries_take_more_queries_than_one_grid(cuda, entry):
+    """grid.y holds at most 65,535 query tiles: the launchers slice the
+    queries, so any count of queries gives the plain version's answer."""
+    from repro_torch.kernels.adc_scan import adc_sums_kernel, adc_sums_plain
+    from repro_torch.kernels.distance import (distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+    from repro_torch.kernels.hamming import (hamming_dist_kernel,
+                                             hamming_dist_plain)
+
+    rng = np.random.default_rng(9)
+    if entry == "distance_matrix":
+        Q, X = _ints(rng, (65535 * 64 + 3, 4)).to(cuda), \
+            _ints(rng, (5, 4)).to(cuda)
+        qsq, xsq = norm_operand(Q, "l2sq"), norm_operand(X, "l2sq")
+        got = distance_matrix_kernel(Q, X, qsq, xsq, mode="l2sq")
+        want = distance_matrix_plain(Q, X, qsq, xsq, mode="l2sq")
+    elif entry == "hamming_dist":
+        X = torch.randint(-2**31, 2**31 - 1, (300, 1), dtype=torch.int32,
+                          device=cuda)
+        Q = torch.randint(-2**31, 2**31 - 1, (65535 * 8 + 5, 1),
+                          dtype=torch.int32, device=cuda)
+        got = hamming_dist_kernel(Q, X, 290)
+        want = hamming_dist_plain(Q, X, 290)
+    else:
+        codes = torch.randint(0, 4, (40, 2), dtype=torch.uint8, device=cuda)
+        luts = torch.rand((65535 * 8 + 3, 2, 4), device=cuda)
+        got = adc_sums_kernel(codes, luts)
+        want = adc_sums_plain(codes, luts)
+    assert torch.equal(got, want)

@@ -31,6 +31,9 @@ def _modules():
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = list(_modules())
     assert "repro_torch.ann.ivf" in mods and "repro_torch.core.runner" in mods
+    assert {"repro_torch.benchmarks.run", "repro_torch.kernels.distance.ops",
+            "repro_torch.kernels.embedbag.ops",
+            "repro_torch.kernels.decode_attn.ops"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -66,6 +69,11 @@ def _entry_points(tmp_path):
     from repro_torch.core.experiment import ExperimentSettings, run_definition
     from repro_torch.core.config import Definition
     from repro_torch.data import exact_knn, get_dataset
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.distance import distance_matrix
+    from repro_torch.kernels.embedbag import embedding_bag
+    from repro_torch.kernels.hamming import hamming_topk
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -107,6 +115,18 @@ def _entry_points(tmp_path):
             bf, get_dataset("blobs-euclidean-300", data_dir=tmp_path,
                             device="cpu"),
             ExperimentSettings(count=3, batch_mode=True, device=dev)),
+        "hamming_topk": lambda dev: hamming_topk(codes[:3], codes, k=2,
+                                                 device=dev),
+        "distance_matrix": lambda dev: distance_matrix(X[:3], X,
+                                                       device=dev),
+        "embedding_bag": lambda dev: embedding_bag(
+            X, [0, 5, 7], [0, 0, 1], n_bags=2, device=dev),
+        "decode_attention": lambda dev: decode_attention(
+            X[:2].reshape(2, 1, 8), X[:40].reshape(2, 20, 1, 8),
+            X[20:60].reshape(2, 20, 1, 8), device=dev),
+        "benchmarks.run": lambda dev: bench_run.main(
+            ["--scale", "smoke", "--only", "stream"]
+            + ([] if dev is None else ["--device", dev])),
     }
 
 
@@ -115,7 +135,9 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "state_from_reference", "run_definition",
                 "hyperplane_build", "e2lsh_build", "rpforest.build",
                 "hamming.bruteforce_build", "bitsampling_build", "mih_build",
-                "train_codec", "quantized bruteforce.build"]
+                "train_codec", "quantized bruteforce.build",
+                "hamming_topk", "distance_matrix", "embedding_bag",
+                "decode_attention", "benchmarks.run"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -200,18 +200,23 @@ def test_adc_plain_tiles_agree():
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_adc_kernel_route_refuses_c_above_its_limit(corpus):
+def test_adc_kernel_route_above_its_limit_matches_reference(corpus):
+    """C = MAX_C + 1 through the kernel route (its sums-out entry: the
+    plain version on the CPU) gives the JAX package's adc_scan answer."""
     X, Q = corpus
-    arrays, _ = quant.train_codec(X, PQ, metric="euclidean", device="cpu")
-    luts = quant.build_luts(arrays["codebooks"], Q, "euclidean")
-    with pytest.raises(ValueError, match=str(MAX_C)):
-        adc_scan(torch.cat([arrays["codes"]] * 2), luts, k=MAX_C + 1,
-                 use_kernel=True)
+    arrays, _ = jx_quant.train_codec(X, PQ, metric="euclidean")
+    jl = jx_quant.build_luts(arrays["codebooks"], jnp.asarray(Q), "euclidean")
+    codes = np.concatenate([np.asarray(arrays["codes"])] * 2)
+    want = jx_adc.adc_scan(jnp.asarray(codes), jl, k=MAX_C + 1)
+    got = adc_scan(torch.as_tensor(codes), torch.as_tensor(np.array(jl)),
+                   k=MAX_C + 1, use_kernel=True)
+    assert got[1].shape == (Q.shape[0], MAX_C + 1)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    assert_same_ids(want[0], want[1], got[1])
     with pytest.raises(ValueError, match="CUDA"):
-        adc_scan_kernel(arrays["codes"], luts, k=10)
-    # the fold has no such limit
-    assert adc_scan(torch.cat([arrays["codes"]] * 2), luts,
-                    k=MAX_C + 1)[1].shape == (Q.shape[0], MAX_C + 1)
+        adc_scan_kernel(torch.as_tensor(codes), torch.as_tensor(np.array(jl)),
+                        k=10)
 
 
 @pytest.mark.parametrize("b,n,m,K,C", [
@@ -284,12 +289,17 @@ def test_quantized_bruteforce_on_reference_state(corpus, metric, spec,
 
 def test_quantized_bruteforce_kernel_refuses_full_scan(corpus):
     """n_cand=None with adc_kernel scans with C = n; above the kernel's
-    limit that raises instead of falling back."""
+    limit (n = 1400 > 1024) it goes through the sums-out route and gives
+    the reference's answer, as any n_cand does."""
     X, Q = corpus
     Xb = np.concatenate([X, X[::-1] + 0.01])            # n = 1400 > 1024
-    st = bf.build(Xb, quantize=PQ, adc_kernel=True, device="cpu")
-    with pytest.raises(ValueError, match="at most 1024"):
-        bf.search(st, Q, k=10)
+    ref = jx_bf.build(Xb, quantize=PQ, adc_kernel=False)
+    st = _carry(ref, adc_kernel=True)
+    want = jx_bf.search(ref, jnp.asarray(Q), k=10)
+    got = bf.search(st, Q, k=10)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    assert_same_ids(want[0], want[1], got[1])
     assert bf.search(st, Q, k=10, n_cand=MAX_C)[1].shape == (Q.shape[0], 10)
 
 
