@@ -73,6 +73,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -122,6 +123,41 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def clocks_under(torch, fn, seconds: float = 2.0):
+    """Median SM clock (MHz) and power draw (W) of the card while ``fn``
+    runs back to back for ``seconds``: ``nvidia-smi`` sampled from a
+    thread, the first third of the samples (the ramp) dropped."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60)
+            parts = r.stdout.strip().splitlines()[0].split(",") \
+                if r.returncode == 0 and r.stdout.strip() else []
+            if len(parts) == 2:
+                samples.append((float(parts[0]), float(parts[1])))
+            stop.wait(0.2)
+
+    thread = threading.Thread(target=sample)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    kept = samples[len(samples) // 3:]
+    check(bool(kept), "nvidia-smi gave no clock samples")
+    clock = sorted(c for c, _ in kept)[len(kept) // 2]
+    power = sorted(w for _, w in kept)[len(kept) // 2]
+    return clock, power
 
 
 def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
@@ -504,7 +540,7 @@ def phase_distance_matrix(torch, peaks):
     """Kernel 5 against its plain version at 1,024 queries x 10^6 rows x
     128 (SIFT-1M's width; a 4.1 GB output) in every mode, timed beside
     ``torch.mm(-Q, X.T)`` (ip mode's function in one library call, TF32
-    off); then the distances-out route of ``ops.stream_topk``: at k = 256
+    off), with the card's SM clock and power draw under each (l2sq); then the distances-out route of ``ops.stream_topk``: at k = 256
     kernel 1 and the route through kernel 5 must agree bit for bit, and at
     k = 257 and 1,000 the route must agree with the plain version."""
     from repro_torch.kernels.distance import (distance_matrix_kernel,
@@ -539,6 +575,13 @@ def phase_distance_matrix(torch, peaks):
         ms = cuda_ms(torch, lambda: distance_matrix_kernel(
             Q, Xm, qsq, xsq, mode=mode), reps=3)
         library_ms = cuda_ms(torch, lambda: torch.mm(-Q, Xm.T), reps=3)
+        under = {}
+        if mode == "l2sq":
+            under = {"kernel_sm_mhz_w": clocks_under(
+                torch, lambda: distance_matrix_kernel(Q, Xm, qsq, xsq,
+                                                      mode=mode)),
+                     "library_sm_mhz_w": clocks_under(
+                         torch, lambda: torch.mm(-Q, Xm.T))}
         flops = 2.0 * nq * n * d
         nbytes = 4.0 * (nq * d + n * d + nq + n + nq * n)
         rec = {"kernel": "distance_matrix", "mode": mode, "nq": nq, "n": n,
@@ -548,7 +591,7 @@ def phase_distance_matrix(torch, peaks):
                "bound_ms": max(flops / flops_peak, nbytes / bytes_peak) * 1e3,
                "bound_by": "operations" if flops / flops_peak
                >= nbytes / bytes_peak else "bytes",
-               "tflops": flops / ms / 1e9}
+               "tflops": flops / ms / 1e9, **under}
         log(json.dumps(rec))
         check(excess <= atol, f"distance_matrix {mode}: error {max_err} "
               f"beyond rtol {rtol}, atol {atol}")

@@ -57,6 +57,21 @@ def hamming_matrix(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return popcount32(x).sum(dim=-1).to(torch.float32)
 
 
+def masked_rows_to(X: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
+                   metric: str) -> torch.Tensor:
+    """Distances from ONE query to the gathered rows ``X[ids]``; entries
+    with ``ids < 0`` come back +inf (gather-safe).  Squared L2 for
+    euclidean, ``1 - x.q`` for angular: the beam-search comparator the
+    graph algorithms share."""
+    x = X[torch.clamp_min(ids, 0).long()]
+    if metric == "angular":
+        d = 1.0 - x @ q
+    else:
+        diff = x - q[None, :]
+        d = torch.sum(diff * diff, dim=-1)
+    return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
+
+
 def distance_matrix(Q, X, metric: str) -> torch.Tensor:
     if metric == "euclidean":
         return torch.sqrt(sq_l2_matrix(Q, X))
@@ -65,6 +80,19 @@ def distance_matrix(Q, X, metric: str) -> torch.Tensor:
     if metric == "hamming":
         return hamming_matrix(Q, X)
     raise ValueError(f"unknown metric {metric!r}")
+
+
+def single(q, x, metric: str, device=None) -> float:
+    """The distance between one query and one point.  A tensor ``q`` fixes
+    the device; arrays go to ``device`` (``cuda`` unless the caller asks
+    for ``cpu``).  Hamming codes are packed 32-bit words."""
+    dev = q.device if torch.is_tensor(q) else resolve_device(device)
+    if metric == "hamming":
+        Q, X = words_to_tensor(q, dev), words_to_tensor(x, dev)
+    else:
+        Q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        X = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return float(distance_matrix(Q[None, :], X[None, :], metric)[0, 0])
 
 
 def pairwise_rows(test: np.ndarray, train: np.ndarray,

@@ -180,6 +180,15 @@ def get_functional(name: str) -> FunctionalSpec:
     return spec
 
 
+def available_functional() -> Dict[str, FunctionalSpec]:
+    """Every registered functional spec by name
+    (``repro.ann.functional.available_functional``)."""
+    import importlib
+
+    importlib.import_module("repro_torch.ann")
+    return dict(FUNCTIONAL)
+
+
 def search_sweep_points(state: IndexState, Q, *, k: int,
                         points: Sequence[Mapping[str, Any]],
                         **query_params) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -39,3 +39,9 @@ def resolve(constructor: str, module: str | None = None) -> Type[BaseANN]:
         raise TypeError(f"{constructor} does not implement BaseANN")
     return cls
 
+
+
+def available() -> Dict[str, Type[BaseANN]]:
+    """Every registered algorithm by name (``repro.core.registry.available``)."""
+    importlib.import_module("repro_torch.ann")
+    return dict(_REGISTRY)

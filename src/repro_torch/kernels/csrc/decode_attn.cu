@@ -33,6 +33,12 @@
 // up to 8 (head, column) entries of the output, accumulating p . v for the
 // block before the alpha update.  At B = 1 only KV blocks run: a split over
 // S with a combine pass is later work.
+//
+// Launch contract: B of any size (the launcher slices the batch over
+// grid.y's 65,535 rows); G * dh <= 2,048 outputs per block and
+// smem_bytes(G, dh, bs) <= 232,448 (the wrapper, decode_attn.py, splits
+// each KV head's G query heads into groups that fit both, and refuses only
+// a single head whose smem_bytes(1, dh, bs) does not fit).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -208,12 +214,21 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
       decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(KV, B);
-  decode_attn_kernel<T><<<grid, THREADS, smem, s>>>(
-      reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), lengths, reinterpret_cast<T*>(out), S,
-      KV, G, dh, bs, n_blocks, scale);
-  return (int)cudaGetLastError();
+  // grid.y holds at most 65,535 batch rows: launch in slices of the batch
+  constexpr int SLICE = 65535;
+  for (int b0 = 0; b0 < B; b0 += SLICE) {
+    const int rows = B - b0 < SLICE ? B - b0 : SLICE;
+    const size_t qo = (size_t)b0 * KV * G * dh;
+    const size_t co = (size_t)b0 * S * KV * dh;
+    dim3 grid(KV, rows);
+    decode_attn_kernel<T><<<grid, THREADS, smem, s>>>(
+        reinterpret_cast<const T*>(q) + qo, reinterpret_cast<const T*>(k) + co,
+        reinterpret_cast<const T*>(v) + co, lengths + b0,
+        reinterpret_cast<T*>(out) + qo, S, KV, G, dh, bs, n_blocks, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -223,7 +238,7 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const int* lengths, void* out, int B, int S,
                                   int KV, int G, int dh, int bs, float scale,
                                   int dtype, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || G < 1 || dh < 1 || bs < 1 || B > 65535 ||
+  if (B < 1 || S < 1 || KV < 1 || G < 1 || dh < 1 || bs < 1 ||
       G * dh > THREADS * MAX_ACC || dtype < 0 || dtype > 1 ||
       smem_bytes(G, dh, bs) > 232448)
     return (int)cudaErrorInvalidValue;

@@ -30,6 +30,30 @@ from repro_torch import kernels
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG = -1e30
+MAX_OUT = 2048        # G * dh outputs one block holds (THREADS * MAX_ACC)
+SMEM_LIMIT = 232_448  # shared memory one block can use on an H100
+SUB = 64              # cache rows the kernel stages at a time
+
+
+def smem_bytes(G: int, dh: int, bs: int) -> int:
+    """Shared memory of one block for G query heads (``decode_attn.cu``'s
+    ``smem_bytes``): queries, a block of scores, staged rows, m / l /
+    alpha."""
+    return 4 * (G * dh + G * bs + SUB * (dh + 1) + 3 * G)
+
+
+def heads_per_launch(G: int, dh: int, bs: int) -> int:
+    """The most query heads of one KV head that a launch takes: G * dh <=
+    2,048 outputs per block and ``smem_bytes`` <= 232,448 bytes.  Raises
+    where not even one head fits (``smem_bytes(1, dh, bs)`` too large)."""
+    fit = (SMEM_LIMIT // 4 - SUB * (dh + 1)) // (dh + bs + 3)
+    g = min(G, MAX_OUT // dh, fit)
+    if g < 1:
+        raise ValueError(
+            f"decode_attention kernel: one query head at dh={dh}, bs={bs} "
+            f"needs {smem_bytes(1, dh, bs)} bytes of shared memory, above "
+            f"the {SMEM_LIMIT} one block can use; pass a smaller bs")
+    return g
 
 
 def decode_attention_plain(q, k, v, lengths, *, bs: int):
@@ -77,8 +101,17 @@ def _check(name, t, dtype, shape, device):
 
 def decode_attention_kernel(q, k, v, lengths, *, bs: int):
     """Launch the CUDA kernel on CUDA tensors (same contract as
-    :func:`decode_attention_plain`).  Raises on anything it does not
-    take: G * dh above 2,048, or a block of scores beyond shared memory."""
+    :func:`decode_attention_plain`).
+
+    Any B (the launcher slices the batch over the grid's limit).  Where a
+    KV head's G query heads do not fit one block (G * dh above 2,048
+    outputs, or ``smem_bytes(G, dh, bs)`` above 232,448 bytes), they go in
+    groups of :func:`heads_per_launch`, one launch each on a contiguous
+    copy of the group's queries; every head's arithmetic is the same in
+    any group.  The contract: it raises where one head alone needs more
+    shared memory than a block has (``smem_bytes(1, dh, bs)`` = 4 (65 dh
+    + bs + 67) > 232,448), and on what it does not take (types, shapes,
+    devices)."""
     if not q.is_cuda:
         raise ValueError("decode_attention kernel needs CUDA tensors")
     if q.dtype not in DTYPES:
@@ -91,17 +124,29 @@ def decode_attention_kernel(q, k, v, lengths, *, bs: int):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, bs={bs}")
     G = H // KV
-    if G * dh > 2048:
-        raise ValueError(f"decode_attention kernel holds G * dh <= 2048 "
-                         f"outputs per block, got G={G}, dh={dh}")
+    g = heads_per_launch(G, dh, bs)
     _check("q", q, q.dtype, (B, H, dh), dev)
     _check("k", k, q.dtype, (B, S, KV, dh), dev)
     _check("v", v, q.dtype, (B, S, KV, dh), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
     out = torch.empty_like(q)
+    q4, o4 = q.view(B, KV, G, dh), out.view(B, KV, G, dh)
+    for g0 in range(0, G, g):
+        g1 = min(G, g0 + g)
+        part = q4[:, :, g0:g1].reshape(B, KV * (g1 - g0), dh).contiguous()
+        o4[:, :, g0:g1] = _launch(part, k, v, lengths, g1 - g0, bs).view(
+            B, KV, g1 - g0, dh)
+    return out
+
+
+def _launch(q, k, v, lengths, G: int, bs: int):
+    """One launch of the kernel for q [B, KV * G, dh] (checked operands)."""
+    B, _, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
     fn = _launch_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), B, S, KV, G, dh, bs,
                     1.0 / (dh ** 0.5), DTYPES[q.dtype], stream)

@@ -393,8 +393,9 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, S, bs, KV, G, dh):
 @pytest.mark.parametrize("entry", ["distance_matrix", "hamming_dist",
                                    "adc_sums"])
 def test_distances_out_entries_take_more_queries_than_one_grid(cuda, entry):
-    """grid.y holds at most 65,535 query tiles: the launchers slice the
-    queries, so any count of queries gives the plain version's answer."""
+    """grid.y holds at most 65,535 query tiles: the hamming and ADC
+    launchers slice the queries, and kernel 5 numbers its tiles on a 1-D
+    grid, so any count of queries gives the plain version's answer."""
     from repro_torch.kernels.adc_scan import adc_sums_kernel, adc_sums_plain
     from repro_torch.kernels.distance import (distance_matrix_kernel,
                                               distance_matrix_plain)
@@ -422,3 +423,134 @@ def test_distances_out_entries_take_more_queries_than_one_grid(cuda, entry):
         got = adc_sums_kernel(codes, luts)
         want = adc_sums_plain(codes, luts)
     assert torch.equal(got, want)
+
+
+# ------------------------------- kernel 5's 128 x 128 tile, edges and grid
+@pytest.mark.parametrize("d", [1, 3, 8, 37, 129])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 5003])
+@pytest.mark.parametrize("nq", [1, 127, 128, 129, 5003])
+def test_distance_matrix_kernel_ragged_tiles(cuda, nq, n, d):
+    """Every edge of the tile (rows, columns, the 8-wide chunk of d, d % 4)
+    on integer-valued inputs, where every fp32 operation is exact: the
+    kernel equals its plain version bit for bit."""
+    from repro_torch.kernels.distance import (distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(nq * 7 + n * 3 + d)
+    Q, X = _ints(rng, (nq, d)).to(cuda), _ints(rng, (n, d)).to(cuda)
+    for mode in ("l2sq", "ip", "cos"):
+        qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+        got = distance_matrix_kernel(Q, X, qsq, xsq, mode=mode)
+        want = distance_matrix_plain(Q, X, qsq, xsq, mode=mode)
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("n", [1001, 1002, 1003, 1004])
+def test_distance_matrix_kernel_scalar_and_vector_stores(cuda, n):
+    """n % 4 != 0 takes the scalar stores everywhere; n % 4 == 0 the
+    16-byte stores; both agree with the plain version (gaussian inputs)."""
+    from repro_torch.kernels.distance import (distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(n)
+    Q = torch.as_tensor(rng.standard_normal((300, 64)).astype(np.float32))
+    X = torch.as_tensor(rng.standard_normal((n, 64)).astype(np.float32))
+    Q, X = Q.to(cuda), X.to(cuda)
+    qsq, xsq = norm_operand(Q, "l2sq"), norm_operand(X, "l2sq")
+    got = distance_matrix_kernel(Q, X, qsq, xsq, mode="l2sq")
+    want = distance_matrix_plain(Q, X, qsq, xsq, mode="l2sq")
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_distance_matrix_kernel_unaligned_operands(cuda):
+    """Operands whose base is not 16-byte aligned (d % 4 == 0) take the
+    scalar loads and give the same bits as aligned copies."""
+    from repro_torch.kernels.distance import distance_matrix_kernel
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(11)
+    nq, n, d = 200, 700, 36
+    Qa = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32))
+    Xa = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32))
+    Qa, Xa = Qa.to(cuda), Xa.to(cuda)
+    Qu = torch.empty(nq * d + 1, device=cuda)[1:].view(nq, d)
+    Xu = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    Qu.copy_(Qa)
+    Xu.copy_(Xa)
+    assert Qu.data_ptr() % 16 and Xu.data_ptr() % 16
+    qsq, xsq = norm_operand(Qa, "l2sq"), norm_operand(Xa, "l2sq")
+    a = distance_matrix_kernel(Qa, Xa, qsq, xsq, mode="l2sq")
+    b = distance_matrix_kernel(Qu, Xu, qsq, xsq, mode="l2sq")
+    assert torch.equal(a, b)
+
+
+def test_distance_matrix_kernel_past_65535_tiles(cuda):
+    """32,769 query tiles x 2 corpus tiles = 65,538 blocks on the 1-D grid
+    (the old grid.y held 65,535 tiles of one axis)."""
+    from repro_torch.kernels.distance import (distance_matrix_kernel,
+                                              distance_matrix_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(12)
+    nq, n, d = 128 * 32768 + 1, 129, 4
+    Q, X = _ints(rng, (nq, d)).to(cuda), _ints(rng, (n, d)).to(cuda)
+    qsq, xsq = norm_operand(Q, "l2sq"), norm_operand(X, "l2sq")
+    got = distance_matrix_kernel(Q, X, qsq, xsq, mode="l2sq")
+    want = distance_matrix_plain(Q, X, qsq, xsq, mode="l2sq")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "ip", "cos"])
+@pytest.mark.parametrize("nq,n,d", [(129, 5003, 37), (127, 5003, 129)])
+def test_distance_route_equals_stream_kernel_bitwise_ragged(cuda, mode, nq,
+                                                            n, d):
+    """At k = 256, at shapes ragged against both kernels' tiles and chunks,
+    with 10 % of the rows masked by +inf: kernel 1 and the route through
+    kernel 5 agree bit for bit."""
+    from repro_torch.kernels.distance_topk import stream_topk_kernel
+    from repro_torch.kernels.distance.distance import norm_operand
+    from repro_torch.kernels.distance_topk.ops import distances_route
+
+    rng = np.random.default_rng(nq + d)
+    Q = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32))
+    X = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32))
+    Q, X = Q.to(cuda), X.to(cuda)
+    if mode == "cos":
+        Q, X = Q / Q.norm(dim=1, keepdim=True), X / X.norm(dim=1, keepdim=True)
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+    xsq[torch.as_tensor(rng.random(n) < 0.1).to(cuda)] = float("inf")
+    a = stream_topk_kernel(Q, X, qsq, xsq, mode=mode, k=256)
+    b = distances_route(Q, X, qsq, xsq, mode=mode, k=256)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ------------------------------------------------- kernel 7's lifted limits
+@pytest.mark.parametrize("B,KV,G,dh", [(65537, 1, 2, 8), (3, 1, 17, 128),
+                                       (2, 2, 40, 64)])
+def test_decode_attention_beyond_one_launch(cuda, B, KV, G, dh):
+    """B past grid.y's 65,535 rows (the launcher slices the batch), and
+    G * dh past 2,048 outputs per block (the wrapper launches groups of
+    query heads): the plain version's answer within 1e-5."""
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_kernel,
+                                                 decode_attention_plain)
+    from repro_torch.kernels.decode_attn.decode_attn import heads_per_launch
+
+    rng = np.random.default_rng(B + G)
+    S, bs = 40, 16
+    q = torch.as_tensor(rng.standard_normal((B, KV * G, dh)).astype(
+        np.float32)).to(cuda)
+    k = torch.as_tensor(rng.standard_normal((B, S, KV, dh)).astype(
+        np.float32)).to(cuda)
+    v = torch.as_tensor(rng.standard_normal((B, S, KV, dh)).astype(
+        np.float32)).to(cuda)
+    lengths = torch.as_tensor(rng.integers(0, S + 3, B).astype(np.int32)).to(
+        cuda)
+    g = heads_per_launch(G, dh, bs)
+    before = decode_attention_kernel.launches
+    got = decode_attention(q, k, v, lengths, bs=bs)
+    assert decode_attention_kernel.launches == before + -(-G // g)
+    want = decode_attention_plain(q, k, v, lengths, bs=bs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

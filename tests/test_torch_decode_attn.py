@@ -100,3 +100,25 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     assert decode_attention_kernel.launches == 0
     with pytest.raises(ValueError, match="group"):
         decode_attention(q[:, :7], k, v, lengths)
+
+
+def test_heads_per_launch_is_the_kernels_contract():
+    """Groups of query heads fit one block (G * dh <= 2,048 outputs,
+    shared memory <= 232,448 bytes); only a head that alone needs more
+    shared memory is refused."""
+    from repro_torch.kernels.decode_attn.decode_attn import (
+        SMEM_LIMIT, heads_per_launch, smem_bytes)
+
+    assert heads_per_launch(3, 128, 512) == 3          # phi-4-mini
+    assert heads_per_launch(17, 128, 512) == 16
+    assert heads_per_launch(40, 64, 16) == 32
+    for G, dh, bs in [(64, 32, 4096), (200, 8, 512), (8, 512, 2048)]:
+        g = heads_per_launch(G, dh, bs)
+        assert 1 <= g <= G and g * dh <= 2048
+        assert smem_bytes(g, dh, bs) <= SMEM_LIMIT
+        assert g == G or smem_bytes(g + 1, dh, bs) > SMEM_LIMIT \
+            or (g + 1) * dh > 2048
+    with pytest.raises(ValueError, match="232448"):
+        heads_per_launch(1, 1024, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        heads_per_launch(2, 128, 60000)
