@@ -20,10 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     C = 1,500), ``embedding_bag`` (Criteo-1TB's largest table, 39,884,406 x
     128 fp32, 65,536 bags of 8 lookups on average, bit for bit) and
     ``decode_attention`` (phi-4-mini at decode_32k: B = 128, 24 heads over
-    8 KV heads, dh = 128, S = 32,768, bf16, within one bf16 ulp; and fp32
-    at the kernel bench's shape).  Each new kernel is also timed against
-    one PyTorch call that computes the same function (``library_ms``),
-    which the port never calls;
+    8 KV heads, dh = 128, S = 32,768; gemma3-27b at long_500k: B = 1, 32
+    heads over 16 KV heads, S = 524,288; bf16, within one bf16 ulp of the
+    plain version at the kernel's partitions, each case's partition and
+    combine passes timed apart by ``torch.profiler``; and fp32 at the
+    kernel bench's shape).  Each new kernel is also timed against one
+    PyTorch call that computes the same function (``library_ms``), which
+    the port never calls;
  3. the paths through ``repro_torch.core.runner.run_benchmark`` in batch
     mode (best of two repetitions), each with the launch counts set to 0
     just before it and read just after:
@@ -756,82 +759,168 @@ def phase_embedding_bag(torch, peaks):
     return rec
 
 
-def phase_decode_attention(torch, peaks):
-    """Kernel 7 against its plain version at phi-4-mini's decode_32k shape
-    (``configs/phi4_mini_3_8b.py``: 24 heads over 8 KV heads, dh = 128;
-    ``configs/shapes.py``: B = 128, S = 32,768), bf16, a 17.2 GB cache;
-    lengths uniform in [1, S], then full.  Within one bf16 ulp; timed
-    beside ``scaled_dot_product_attention`` on the same cache (each KV
-    head's G query heads as its query rows, a length mask).  Then fp32 at
-    the kernel bench's shape, within rtol 1e-5."""
+def profile_call(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``, after one call under
+    it that is not read (the profiler's own first-launch cost): the device
+    time of each kernel it ran (ms, by name), the share of the call's
+    window (from the call to the end of ``torch.cuda.synchronize()``) in
+    which the device ran nothing, and the window (ms).  Fails if the trace
+    holds no device activity in the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name in ("smoke_warm", "smoke_call"):
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "smoke_call"
+              and e.device_type == DeviceType.CPU]
+    check(len(window) == 1, "profiler: no window of the call in the trace")
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    spans, by_name = [], {}
+    for e in events:
+        t0, t1 = e.time_range.start, e.time_range.end
+        if e.device_type != DeviceType.CUDA or e.name.startswith("smoke_") \
+                or t1 <= w0 or t0 >= w1:
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+        spans.append((max(t0, w0), min(t1, w1)))
+    check(bool(spans), "profiler: the trace holds no device activity")
+    busy, reach = 0.0, w0
+    for t0, t1 in sorted(spans):
+        t0 = max(t0, reach)
+        if t1 > t0:
+            busy += t1 - t0
+            reach = t1
+    return by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e3
+
+
+def decode_case(torch, peaks, q, k, v, lengths, label):
+    """One bf16 case of kernel 7 at bs = 512 and the partitions it picks:
+    against its plain version at the same ``part_blocks`` (within one
+    bf16 ulp), timed beside ``scaled_dot_product_attention`` on the same
+    cache (each KV head's G query heads as its query rows, a length mask),
+    and one call traced by the profiler for the device time of each pass
+    and the idle share of the call's window."""
     from repro_torch.kernels.decode_attn import (decode_attention_kernel,
                                                  decode_attention_plain)
+    from repro_torch.kernels.decode_attn.decode_attn import (
+        heads_per_launch, kernel_partitions)
 
     flops_peak, bytes_peak = peaks
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    B, H, KV, dh, S = 128, 24, 8, 128, 32_768
+    B, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
     G = H // KV
-    bf16 = torch.bfloat16
-    q = torch.randn((B, H, dh), generator=gen, device="cuda", dtype=bf16)
-    k = torch.randn((B, S, KV, dh), generator=gen, device="cuda", dtype=bf16)
-    v = torch.randn((B, S, KV, dh), generator=gen, device="cuda", dtype=bf16)
+    bs = 512
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    part_blocks, P = kernel_partitions(q, k, bs)
+    grid_blocks = B * KV * P * -(-G // heads_per_launch(G, dh, bs))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    got = decode_attention_kernel(q, k, v, lengths, bs=bs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = decode_attention_plain(q, k, v, lengths, bs=bs,
+                                  part_blocks=part_blocks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ulps = bf16_ulps(torch, got, want)
+    max_err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(torch, lambda: decode_attention_kernel(
+        q, k, v, lengths, bs=bs), reps=3)
+    by_name, idle, window_ms = profile_call(
+        torch, lambda: decode_attention_kernel(q, k, v, lengths, bs=bs))
+    passes = {f"{name}_ms": sum(t for n, t in by_name.items()
+                                if f"decode_attn_{name}<" in n)
+              for name in ("part", "combine")}
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qv, kv, vv = (q.view(B, KV, G, dh), k.permute(0, 2, 1, 3),
+                  v.permute(0, 2, 1, 3))
+    lib = sdpa(qv, kv, vv, attn_mask=mask).reshape(B, H, dh)
+    library_err = float((lib.float() - want.float()).abs().max())
+    library_ms = cuda_ms(torch, lambda: sdpa(qv, kv, vv, attn_mask=mask),
+                         reps=3)
+    rows = float(lengths.clamp(0, S).sum())
+    nbytes = 2.0 * 2 * rows * KV * dh + 2.0 * 2 * B * H * dh + 4.0 * B
+    ops = 4.0 * H * dh * rows
+    rec = {"kernel": "decode_attention", "lengths": label, "B": B,
+           "H": H, "KV": KV, "dh": dh, "S": S, "dtype": "bfloat16",
+           "bs": bs, "P": P, "part_blocks": part_blocks,
+           "grid_blocks": grid_blocks, "valid_rows": rows,
+           "max_abs_err": max_err, "max_bf16_ulps": ulps, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "scaled_dot_product_attention on [B, KV, S, dh] "
+                      "views, G query rows per KV head, length mask",
+           "library_max_abs_err": library_err,
+           "bound_ms": max(ops / flops_peak, nbytes / bytes_peak) * 1e3,
+           "bound_by": "operations" if ops / flops_peak
+           >= nbytes / bytes_peak else "bytes",
+           "gbytes_per_s": nbytes / ms / 1e6, **passes,
+           "profiled_device_ms": by_name, "profiled_window_ms": window_ms,
+           "profiled_idle_share": idle}
+    log(json.dumps(rec))
+    check(ulps <= 1.0, f"decode_attention {label}: {ulps} bf16 ulps from "
+          f"its plain version")
+    check(grid_blocks >= 2 * n_sm, f"decode_attention {label}: "
+          f"{grid_blocks} partition blocks, fewer than two per SM")
+    check(passes["part_ms"] > 0 and passes["combine_ms"] > 0,
+          f"decode_attention {label}: the trace lacks a pass: {by_name}")
+    return rec
+
+
+def phase_decode_attention(torch, peaks):
+    """Kernel 7 in bf16 at phi-4-mini's decode_32k (``configs/
+    phi4_mini_3_8b.py``: 24 heads over 8 KV heads, dh = 128;
+    ``configs/shapes.py``: B = 128, S = 32,768; a 17.2 GB cache), lengths
+    uniform in [1, S], then full; then at gemma3-27b's long_500k, one
+    global layer (``configs/gemma3_27b.py``: 32 heads over 16 KV heads,
+    dh = 128; B = 1, S = 524,288; a 4.29 GB cache), lengths full, then
+    S // 3 + 1.  Each case by ``decode_case``.  Then fp32 at the kernel
+    bench's shape, lengths 0 / 1 / 1000 / S, within rtol 1e-5."""
+    from repro_torch.kernels.decode_attn import (decode_attention_kernel,
+                                                 decode_attention_plain)
+    from repro_torch.kernels.decode_attn.decode_attn import kernel_partitions
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
     main = None
-    for label, lengths in [
-            ("uniform", torch.randint(1, S + 1, (B,), generator=gen,
-                                      device="cuda", dtype=torch.int32)),
-            ("full", torch.full((B,), S, dtype=torch.int32, device="cuda"))]:
-        got = decode_attention_kernel(q, k, v, lengths, bs=512)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = decode_attention_plain(q, k, v, lengths, bs=512)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        ulps = bf16_ulps(torch, got, want)
-        max_err = float((got.float() - want.float()).abs().max())
-        ms = cuda_ms(torch, lambda: decode_attention_kernel(
-            q, k, v, lengths, bs=512), reps=3)
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < lengths[:, None])[:, None, None, :]
-        qv, kv, vv = (q.view(B, KV, G, dh), k.permute(0, 2, 1, 3),
-                      v.permute(0, 2, 1, 3))
-        lib = sdpa(qv, kv, vv, attn_mask=mask).reshape(B, H, dh)
-        library_err = float((lib.float() - want.float()).abs().max())
-        library_ms = cuda_ms(torch, lambda: sdpa(qv, kv, vv, attn_mask=mask),
-                             reps=3)
-        rows = float(lengths.sum())
-        nbytes = 2.0 * 2 * rows * KV * dh + 2.0 * 2 * B * H * dh + 4.0 * B
-        ops = 4.0 * H * dh * rows
-        rec = {"kernel": "decode_attention", "lengths": label, "B": B,
-               "H": H, "KV": KV, "dh": dh, "S": S, "dtype": "bfloat16",
-               "bs": 512, "valid_rows": rows, "max_abs_err": max_err,
-               "max_bf16_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "library": "scaled_dot_product_attention on [B, KV, S, dh] "
-                          "views, G query rows per KV head, length mask",
-               "library_max_abs_err": library_err,
-               "bound_ms": max(ops / flops_peak, nbytes / bytes_peak) * 1e3,
-               "bound_by": "operations" if ops / flops_peak
-               >= nbytes / bytes_peak else "bytes",
-               "gbytes_per_s": nbytes / ms / 1e6}
-        log(json.dumps(rec))
-        check(ulps <= 1.0, f"decode_attention {label}: {ulps} bf16 ulps "
-              f"from its plain version")
-        if main is None:
-            main = rec
-        del got, want, lib, mask, qv, kv, vv
-    del q, k, v
-    torch.cuda.empty_cache()
+    for B, H, KV, dh, S, cases in [
+            (128, 24, 8, 128, 32_768, ("uniform", "full")),
+            (1, 32, 16, 128, 524_288, ("full", "third"))]:
+        q = torch.randn((B, H, dh), generator=gen, device="cuda", dtype=bf16)
+        k = torch.randn((B, S, KV, dh), generator=gen, device="cuda",
+                        dtype=bf16)
+        v = torch.randn((B, S, KV, dh), generator=gen, device="cuda",
+                        dtype=bf16)
+        for label in cases:
+            if label == "uniform":
+                lengths = torch.randint(1, S + 1, (B,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+            else:
+                n = S if label == "full" else S // 3 + 1
+                lengths = torch.full((B,), n, dtype=torch.int32,
+                                     device="cuda")
+            rec = decode_case(torch, peaks, q, k, v, lengths, label)
+            if main is None:
+                main = rec
+        del q, k, v
+        torch.cuda.empty_cache()
     Bq, H, KV, S, dh = 4, 8, 4, 2048, 64
     q = torch.randn((Bq, H, dh), generator=gen, device="cuda")
     k = torch.randn((Bq, S, KV, dh), generator=gen, device="cuda")
     v = torch.randn((Bq, S, KV, dh), generator=gen, device="cuda")
     lengths = torch.tensor([0, 1, 1000, S], dtype=torch.int32, device="cuda")
+    part_blocks, P = kernel_partitions(q, k, 256)
     got = decode_attention_kernel(q, k, v, lengths, bs=256)
-    want = decode_attention_plain(q, k, v, lengths, bs=256)
+    want = decode_attention_plain(q, k, v, lengths, bs=256,
+                                  part_blocks=part_blocks)
     max_err, excess = within(torch, got, want, 1e-5, 1e-5)
     log(json.dumps({"kernel": "decode_attention", "dtype": "float32",
                     "B": Bq, "H": H, "KV": KV, "S": S, "dh": dh, "bs": 256,
+                    "P": P, "part_blocks": part_blocks,
                     "lengths": lengths.tolist(), "max_abs_err": max_err}))
     check(excess <= 1e-5, f"decode_attention fp32: error {max_err}")
     return main

@@ -4,7 +4,13 @@ with the per-KV-head mapping of its ``ops.py``).
 
 ``decode_attention_kernel`` launches ``csrc/decode_attn.cu`` on CUDA
 tensors; ``decode_attention_plain`` computes the same function with torch
-ops.  Operands, in the reference's public layout:
+ops.  The kernel runs in two passes: a partition pass splits the cache
+into P partitions of ``part_blocks`` whole blocks of ``bs`` positions
+(:func:`partitions` picks P from the shapes and the card) and writes each
+(KV head, batch row, partition)'s float32 partial (m, l, acc) to a
+workspace the wrapper allocates ([P, B, H] for m and l, [P, B, H, dh] for
+acc); a combine pass merges the partials in ascending partition order and
+divides.  Operands, in the reference's public layout:
 
     q        [B, H, dh]      float32 or bfloat16; H = KV * G, query head
                              kv * G + g reads KV head kv
@@ -17,7 +23,9 @@ block in float32: q scaled first, masked scores -1e30, ``alpha =
 exp(m_prev - m_new)``, the final divide by ``max(l, 1e-30)``, S padded with
 zero rows to a multiple of ``bs`` (so a row with length 0 averages v over
 the padded length).  They sum dot products in other orders, so they agree
-to float32 rounding, not bit for bit.
+to float32 rounding, not bit for bit.  The plain version with
+``part_blocks`` runs the kernel's partitions and combine in the kernel's
+order; without it, the blocks in one sequence, as the reference does.
 """
 
 from __future__ import annotations
@@ -33,6 +41,13 @@ NEG = -1e30
 MAX_OUT = 2048        # G * dh outputs one block holds (THREADS * MAX_ACC)
 SMEM_LIMIT = 232_448  # shared memory one block can use on an H100
 SUB = 64              # cache rows the kernel stages at a time
+SLICE = 65_535        # batch rows of one launch (grid.y's limit)
+# Resident waves of partition blocks a launch aims for, so that the last,
+# partly filled wave is a small share of the work.  Swept over 1, 2, 3, 4,
+# 6, 8 and 16 on an H100 (bf16, bs = 512): 16 was fastest at decode_32k
+# (B = 128, KV = 8) and at long_500k with B = 1 and S // 3 + 1 valid
+# positions, and about level with the fastest (6) at long_500k full.
+WAVES = 16
 
 
 def smem_bytes(G: int, dh: int, bs: int) -> int:
@@ -56,37 +71,81 @@ def heads_per_launch(G: int, dh: int, bs: int) -> int:
     return g
 
 
-def decode_attention_plain(q, k, v, lengths, *, bs: int):
-    """Plain version of the kernel: the online softmax over blocks of
-    ``bs`` cache positions, all KV heads at once, the cache sliced in
-    place one block at a time."""
-    B, H, dh = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = 1.0 / (dh ** 0.5)
-    qg = q.reshape(B, KV, G, dh).to(torch.float32) * scale
+def partitions(B: int, KV: int, bs: int, S: int, n_sm: int,
+               per_sm: int) -> tuple:
+    """(part_blocks, P) for one launch.  P' is the fewest partitions that
+    make the blocks of one batch slice (``min(B, 65,535) * KV * P'``) at
+    least ``WAVES`` resident waves of ``n_sm * per_sm`` blocks, at most
+    n_blocks; the partitions are runs of part_blocks = ceil(n_blocks / P')
+    whole ``bs``-blocks, so P <= P' and, where P' < n_blocks, P > P' / 2.
+    P = 1 where the (KV head, row) pairs already fill the waves.  From
+    shapes and the card only (the lengths would have to be read to the
+    host)."""
     n_blocks = -(-S // bs)
-    lens = lengths.to(device=q.device).reshape(B, 1, 1, 1)
-    m = torch.full((B, KV, G, 1), NEG, dtype=torch.float32, device=q.device)
+    pairs = min(B, SLICE) * KV
+    P = min(n_blocks, max(1, -(-WAVES * n_sm * per_sm // pairs)))
+    part_blocks = -(-n_blocks // P)
+    return part_blocks, -(-n_blocks // part_blocks)
+
+
+def _online(qg, k, v, lens, s0, s1, bs):
+    """The online softmax over positions [s0, s1) in blocks of ``bs``
+    from m = -1e30, l = 0, acc = 0: (m, l [B, KV, G, 1], acc [B, KV, G,
+    dh]) in float32."""
+    B, KV, G, dh = qg.shape
+    S = k.shape[1]
+    m = torch.full((B, KV, G, 1), NEG, dtype=torch.float32, device=qg.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, KV, G, dh), dtype=torch.float32, device=q.device)
-    for j in range(n_blocks):
-        s0, s1 = j * bs, min(j * bs + bs, S)
-        kb = k[:, s0:s1].to(torch.float32)                 # [B, n, KV, dh]
-        vb = v[:, s0:s1].to(torch.float32)
+    acc = torch.zeros((B, KV, G, dh), dtype=torch.float32, device=qg.device)
+    for b0 in range(s0, s1, bs):
+        b1 = min(b0 + bs, S)
+        kb = k[:, b0:b1].to(torch.float32)                 # [B, n, KV, dh]
+        vb = v[:, b0:b1].to(torch.float32)
         s = torch.einsum("bhgd,bnhd->bhgn", qg, kb)
-        if s1 - s0 < bs:                                   # zero padding rows
-            s = torch.nn.functional.pad(s, (0, bs - (s1 - s0)))
-        pos = torch.arange(s0, s0 + bs, device=q.device)
+        if b1 - b0 < bs:                                   # zero padding rows
+            s = torch.nn.functional.pad(s, (0, bs - (b1 - b0)))
+        pos = torch.arange(b0, b0 + bs, device=qg.device)
         s = torch.where(pos < lens, s, torch.full_like(s, NEG))
         m_new = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhgn,bnhd->bhgd",
-                                         p[..., :s1 - s0], vb)
+                                         p[..., :b1 - b0], vb)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)
+    return m, l, acc
+
+
+def decode_attention_plain(q, k, v, lengths, *, bs: int,
+                           part_blocks: int | None = None):
+    """Plain version of the kernel: the online softmax over blocks of
+    ``bs`` cache positions, all KV heads at once, the cache sliced in
+    place one block at a time.  ``part_blocks=None`` runs the blocks in
+    one sequence; an int runs the kernel's partitions of that many blocks
+    and its combine, partitions in ascending order.  A partition past a
+    positive length gives (m = -1e30, l, acc) here where the kernel writes
+    (-1e30, 0, 0): the combine weighs both by exp(-1e30 - M) = 0."""
+    B, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    scale = 1.0 / (dh ** 0.5)
+    qg = q.reshape(B, KV, H // KV, dh).to(torch.float32) * scale
+    lens = lengths.to(device=q.device).reshape(B, 1, 1, 1)
+    n_blocks = -(-S // bs)
+    if part_blocks is None:
+        m, l, acc = _online(qg, k, v, lens, 0, n_blocks * bs, bs)
+        out = acc / torch.clamp_min(l, 1e-30)
+    else:
+        span = part_blocks * bs
+        parts = [_online(qg, k, v, lens, s0, min(s0 + span, n_blocks * bs),
+                         bs) for s0 in range(0, n_blocks * bs, span)]
+        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        num = torch.zeros_like(parts[0][2])
+        den = torch.zeros_like(top)
+        for m, l, acc in parts:
+            w = torch.exp(m - top)
+            num = num + w * acc
+            den = den + w * l
+        out = num / torch.clamp_min(den, 1e-30)
     return out.to(q.dtype).reshape(B, H, dh)
 
 
@@ -99,19 +158,45 @@ def _check(name, t, dtype, shape, device):
             f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def decode_attention_kernel(q, k, v, lengths, *, bs: int):
+def kernel_partitions(q, k, bs: int) -> tuple:
+    """(part_blocks, P) the kernel takes for these operands: P from
+    :func:`partitions`, with the card's SM count and the partition pass's
+    resident blocks per SM at :func:`heads_per_launch`'s group size.  All
+    groups of query heads take the same partitions."""
+    B, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    g = heads_per_launch(H // KV, dh, bs)
+    key = (q.device.index, g, dh, bs, q.dtype)
+    if key not in _PER_SM:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(q.device):
+            status = _fns()[1](g, dh, bs, DTYPES[q.dtype],
+                               ctypes.byref(out))
+        kernels.check(status, "decode_attn occupancy")
+        _PER_SM[key] = out.value
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return partitions(B, KV, bs, S, n_sm, _PER_SM[key])
+
+
+def decode_attention_kernel(q, k, v, lengths, *, bs: int,
+                            part_blocks: int | None = None):
     """Launch the CUDA kernel on CUDA tensors (same contract as
     :func:`decode_attention_plain`).
 
-    Any B (the launcher slices the batch over the grid's limit).  Where a
-    KV head's G query heads do not fit one block (G * dh above 2,048
-    outputs, or ``smem_bytes(G, dh, bs)`` above 232,448 bytes), they go in
-    groups of :func:`heads_per_launch`, one launch each on a contiguous
-    copy of the group's queries; every head's arithmetic is the same in
-    any group.  The contract: it raises where one head alone needs more
-    shared memory than a block has (``smem_bytes(1, dh, bs)`` = 4 (65 dh
-    + bs + 67) > 232,448), and on what it does not take (types, shapes,
-    devices)."""
+    Each launch is a pair: the partition pass and the combine pass, on the
+    current stream, through a float32 workspace of P (B H (dh + 2)) words
+    allocated here; ``launches`` counts one per pair.  ``part_blocks``
+    (1 to n_blocks) fixes the partitions; None takes
+    :func:`kernel_partitions`' choice.  Any B (the launcher slices the
+    batch over the grid's limit).  Where a KV head's G query heads do not
+    fit one block (G * dh above 2,048 outputs, or ``smem_bytes(G, dh,
+    bs)`` above 232,448 bytes), they go in groups of
+    :func:`heads_per_launch`, one pair each on a contiguous copy of the
+    group's queries; every head's arithmetic is the same in any group.
+    The contract: it raises where one head alone needs more shared memory
+    than a block has (``smem_bytes(1, dh, bs)`` = 4 (65 dh + bs + 67) >
+    232,448), and on what it does not take (types, shapes, devices,
+    ``part_blocks`` out of range)."""
     if not q.is_cuda:
         raise ValueError("decode_attention kernel needs CUDA tensors")
     if q.dtype not in DTYPES:
@@ -129,27 +214,39 @@ def decode_attention_kernel(q, k, v, lengths, *, bs: int):
     _check("k", k, q.dtype, (B, S, KV, dh), dev)
     _check("v", v, q.dtype, (B, S, KV, dh), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
+    n_blocks = -(-S // bs)
+    if part_blocks is None:
+        part_blocks = kernel_partitions(q, k, bs)[0]
+    if not 1 <= part_blocks <= n_blocks:
+        raise ValueError(f"part_blocks={part_blocks} is outside [1, "
+                         f"{n_blocks}] blocks of {bs} positions")
     out = torch.empty_like(q)
     q4, o4 = q.view(B, KV, G, dh), out.view(B, KV, G, dh)
     for g0 in range(0, G, g):
         g1 = min(G, g0 + g)
         part = q4[:, :, g0:g1].reshape(B, KV * (g1 - g0), dh).contiguous()
-        o4[:, :, g0:g1] = _launch(part, k, v, lengths, g1 - g0, bs).view(
-            B, KV, g1 - g0, dh)
+        o4[:, :, g0:g1] = _launch(part, k, v, lengths, g1 - g0, bs,
+                                  part_blocks).view(B, KV, g1 - g0, dh)
     return out
 
 
-def _launch(q, k, v, lengths, G: int, bs: int):
-    """One launch of the kernel for q [B, KV * G, dh] (checked operands)."""
-    B, _, dh = q.shape
+def _launch(q, k, v, lengths, G: int, bs: int, part_blocks: int):
+    """One pair of passes for q [B, KV * G, dh] (checked operands)."""
+    B, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
+    n_blocks = -(-S // bs)
+    n = -(-n_blocks // part_blocks) * B * H           # P * B * H partials
     out = torch.empty_like(q)
-    fn = _launch_fn()
+    ws = torch.empty(n * (dh + 2), dtype=torch.float32, device=q.device)
+    acc, m, l = ws.data_ptr(), ws[n * dh:].data_ptr(), \
+        ws[n * (dh + 1):].data_ptr()
+    launch, _ = _fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), B, S, KV, G, dh, bs,
-                    1.0 / (dh ** 0.5), DTYPES[q.dtype], stream)
+        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        lengths.data_ptr(), out.data_ptr(), m, l, acc, B, S,
+                        KV, G, dh, bs, part_blocks, 1.0 / (dh ** 0.5),
+                        DTYPES[q.dtype], stream)
     kernels.check(status, "decode_attn")
     decode_attention_kernel.launches += 1
     return out
@@ -157,16 +254,20 @@ def _launch(q, k, v, lengths, G: int, bs: int):
 
 decode_attention_kernel.launches = 0
 
-_FN = None
+_FNS = None
+_PER_SM = {}
 
 
-def _launch_fn():
-    global _FN
-    if _FN is None:
-        fn = kernels.load("decode_attn").decode_attn_launch
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _fns():
+    """The library's (decode_attn_launch, decode_attn_blocks_per_sm)."""
+    global _FNS
+    if _FNS is None:
+        lib = kernels.load("decode_attn")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        launch, occ = lib.decode_attn_launch, lib.decode_attn_blocks_per_sm
+        launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, p]
+        occ.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        launch.restype = occ.restype = i
+        _FNS = launch, occ
+    return _FNS

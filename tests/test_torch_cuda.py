@@ -554,3 +554,83 @@ def test_decode_attention_beyond_one_launch(cuda, B, KV, G, dh):
     assert decode_attention_kernel.launches == before + -(-G // g)
     want = decode_attention_plain(q, k, v, lengths, bs=bs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------ kernel 7's split over the cache
+def _decode_operands(rng, B, KV, G, S, dh, dtype, cuda):
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda, dtype=dtype)
+    return t((B, KV * G, dh)), t((B, S, KV, dh)), t((B, S, KV, dh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", ["one", "two", "three", "every", "auto"])
+def test_decode_attention_partitions_match_plain(cuda, dtype, split):
+    """S = 1000 at bs = 64 is 16 blocks: P = 1, P = 2 with a shorter last
+    partition (9 + 7 blocks), P = 3 (6 + 6 + 4), P = n_blocks, and the
+    wrapper's own choice; lengths 0 / 1 / mid / S / S + 7, so partitions
+    lie wholly past a length.  Within 1e-5 (fp32) or one bf16 ulp of the
+    plain version at the same partitions; one launch (pair) each."""
+    from repro_torch.kernels.decode_attn import (decode_attention_kernel,
+                                                 decode_attention_plain)
+    from repro_torch.kernels.decode_attn.decode_attn import kernel_partitions
+
+    rng = np.random.default_rng(1000)
+    B, KV, G, S, dh, bs = 5, 3, 4, 1000, 64, 64
+    q, k, v = _decode_operands(rng, B, KV, G, S, dh, dtype, cuda)
+    lengths = torch.tensor([0, 1, S // 2, S, S + 7], dtype=torch.int32,
+                           device=cuda)
+    part_blocks = {"one": 16, "two": 9, "three": 6, "every": 1,
+                   "auto": None}[split]
+    before = decode_attention_kernel.launches
+    got = decode_attention_kernel(q, k, v, lengths, bs=bs,
+                                  part_blocks=part_blocks)
+    assert decode_attention_kernel.launches == before + 1
+    if part_blocks is None:
+        part_blocks, P = kernel_partitions(q, k, bs)
+        assert P > 1                     # 15 (kv, b) pairs fill no card
+    want = decode_attention_plain(q, k, v, lengths, bs=bs,
+                                  part_blocks=part_blocks)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("B,KV,G,dh", [(65537, 1, 2, 8), (3, 1, 17, 128),
+                                       (2, 2, 40, 64)])
+def test_decode_attention_partitions_beyond_one_launch(cuda, B, KV, G, dh):
+    """P = 3 partitions of one block with the batch sliced past grid.y's
+    65,535 rows, and with G * dh past one block (groups of query heads,
+    one pair each): the plain version's answer at the same partitions."""
+    from repro_torch.kernels.decode_attn import (decode_attention_kernel,
+                                                 decode_attention_plain)
+    from repro_torch.kernels.decode_attn.decode_attn import heads_per_launch
+
+    rng = np.random.default_rng(B + G + 1)
+    S, bs = 40, 16
+    q, k, v = _decode_operands(rng, B, KV, G, S, dh, torch.float32, cuda)
+    lengths = torch.as_tensor(rng.integers(0, S + 3, B).astype(np.int32)).to(
+        cuda)
+    before = decode_attention_kernel.launches
+    got = decode_attention_kernel(q, k, v, lengths, bs=bs, part_blocks=1)
+    assert decode_attention_kernel.launches == \
+        before + -(-G // heads_per_launch(G, dh, bs))
+    want = decode_attention_plain(q, k, v, lengths, bs=bs, part_blocks=1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_attention_refuses_partitions_out_of_range(cuda):
+    from repro_torch.kernels.decode_attn import decode_attention_kernel
+
+    rng = np.random.default_rng(3)
+    q, k, v = _decode_operands(rng, 2, 1, 2, 40, 8, torch.float32, cuda)
+    lengths = torch.full((2,), 40, dtype=torch.int32, device=cuda)
+    before = decode_attention_kernel.launches
+    for part_blocks in (0, 4):                        # 3 blocks of 16
+        with pytest.raises(ValueError, match="part_blocks"):
+            decode_attention_kernel(q, k, v, lengths, bs=16,
+                                    part_blocks=part_blocks)
+    assert decode_attention_kernel.launches == before
