@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/Hopper port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
+
+``--before DIR`` names the ``src/repro_torch/kernels/csrc`` of a checkout
+of the parent commit: its kernels 1 and 5 are built beside the tree's and
+timed on the same inputs in the same run (parent, tree, tree, parent), and
+the BruteForce trace is taken on both.  Without it the run is the tree's
+alone.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -9,8 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     and the build of every kernel under ``src/repro_torch/kernels/csrc``
     (nvcc, sm_90a, one process per source);
  2. each kernel against its plain PyTorch version at the main path's
-    shapes, with times, bounds and errors: ``stream_topk`` and
-    ``rerank_topk`` (every mode), ``hamming_topk`` (10^4 x 10^6 codes of
+    shapes, with times, bounds and errors: ``stream_topk`` (10^4 x 10^6 x
+    128 at k = 10, and nq = 4,096 at k = 10, 100 and 256 in every mode,
+    each with its launch plan: query rows per tile, splits, shared bytes,
+    resident blocks per SM) and ``rerank_topk`` (every mode), ``hamming_topk`` (10^4 x 10^6 codes of
     256 bits, k = 10 and 100, plus a ragged, masked case) and ``adc_scan``
     (n = 10^6; PQ m = 16 and int8 m = 128 tables; C = 10, 256, 1024);
     ``distance_matrix`` (1,024 x 10^6 x 128, every mode; the k = 256 route
@@ -51,6 +59,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       * angular: ``blobs-angular-200000-d100`` (GloVe-100's width, n cut
         from 1,183,514) with BruteForce, IVF, HyperplaneLSH and RPForest
         (both rerank_kernel) over their probe knobs.
+    Before the paths, one ``stream_topk_batched`` call at the main path's
+    shape (the 10^4 queries of the main set against its 10^6 rows, k = 10,
+    one query block as the runner sends it) under ``torch.profiler``: the
+    device time of each kernel and the idle share of the call's window.
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -188,7 +200,107 @@ def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
     return max_err, outside, at_ties
 
 
-def phase_device(torch):
+class Before:
+    """The parent commit's kernels 1 and 5, built from ``--before DIR`` and
+    launched with the parent's wrappers' arguments, for same-call
+    comparisons.  Kernel 1's parent took 64-query blocks and split the
+    corpus for about eight blocks per SM, in whole 64-row tiles."""
+
+    SOURCES = ("stream_topk", "distance_matrix")
+
+    def __init__(self, src_dir: str):
+        self.src = Path(src_dir).resolve()
+        for name in self.SOURCES:
+            check((self.src / f"{name}.cu").is_file(),
+                  f"--before: {self.src / name}.cu not found")
+        self.out = ROOT / "build" / "before"
+        self.procs = []
+        self.libs = {}
+
+    def start_build(self):
+        from repro_torch import kernels
+
+        self.out.mkdir(parents=True, exist_ok=True)
+        for name in self.SOURCES:
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                   str(self.out / f"lib{name}.so"),
+                   str(self.src / f"{name}.cu")]
+            self.procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+
+    def finish_build(self):
+        import ctypes
+
+        for name, proc in self.procs:
+            text, _ = proc.communicate()
+            check(proc.returncode == 0, f"--before: nvcc {name}: {text}")
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  before {name}: {line.strip()}")
+            self.libs[name] = ctypes.CDLL(str(self.out / f"lib{name}.so"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = self.libs["stream_topk"].stream_topk_launch
+        fn.argtypes = [p] * 8 + [i] * 7 + [p]
+        fn.restype = i
+        fn = self.libs["distance_matrix"].distance_matrix_launch
+        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, i, p]
+        fn.restype = i
+
+    def stream_topk(self, Q, X, qsq, xsq, *, mode: str, k: int):
+        import torch
+
+        from repro_torch.kernels.distance_topk.distance_topk import MODES
+
+        nq, d = Q.shape
+        n = X.shape[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = max(1, min(-(-8 * sms // -(-nq // 64)), 128,
+                            -(-n // 256)))
+        per_split = -(-n // splits)
+        rows = -(-per_split // 64) * 64
+        splits = -(-n // rows)
+        part_d = torch.empty((splits, nq, k), device="cuda")
+        part_i = torch.empty((splits, nq, k), dtype=torch.int32,
+                             device="cuda")
+        out_d = torch.empty((nq, k), device="cuda")
+        out_i = torch.empty((nq, k), dtype=torch.int32, device="cuda")
+        status = self.libs["stream_topk"].stream_topk_launch(
+            Q.data_ptr(), X.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), nq, n, d, k, MODES[mode], splits, rows,
+            torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"before stream_topk: CUDA error {status}")
+        return out_d, out_i
+
+    def distance_matrix(self, Q, X, qsq, xsq, *, mode: str):
+        import torch
+
+        from repro_torch.kernels.distance.distance import MODES
+
+        nq, d = Q.shape
+        n = X.shape[0]
+        out = torch.empty((nq, n), device="cuda")
+        status = self.libs["distance_matrix"].distance_matrix_launch(
+            Q.data_ptr(), X.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+            out.data_ptr(), nq, n, d, n, MODES[mode],
+            torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"before distance_matrix: CUDA error {status}")
+        return out
+
+
+def same_call(torch, before_fn, after_fn, reps: int):
+    """Parent and tree timed in turns (parent, tree, tree, parent), each a
+    ``cuda_ms`` of ``reps`` launches: ``{"before": [ms, ms], "after": [ms,
+    ms]}``."""
+    b1 = cuda_ms(torch, before_fn, reps)
+    a1 = cuda_ms(torch, after_fn, reps)
+    a2 = cuda_ms(torch, after_fn, reps)
+    b2 = cuda_ms(torch, before_fn, reps)
+    return {"before": [b1, b2], "after": [a1, a2]}
+
+
+def phase_device(torch, before):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -205,7 +317,11 @@ def phase_device(torch):
     from repro_torch import kernels
 
     t0 = time.perf_counter()
+    if before is not None:
+        before.start_build()
     kernels.build_all()
+    if before is not None:
+        before.finish_build()
     build_s = time.perf_counter() - t0
     for name, text in kernels.BUILD_INFO.items():
         for line in text.splitlines():
@@ -216,11 +332,15 @@ def phase_device(torch):
     return smi_line, clock_hz
 
 
-def phase_stream_topk(torch, peaks):
+def phase_stream_topk(torch, peaks, before):
     """Kernel 1 against its plain version: the main path's exact shape
-    (l2sq, k=10, 10^4 queries) and nq=4096 for every mode and k."""
+    (l2sq, k=10, 10^4 queries) and nq=4096 for every mode at k = 10, 100
+    and 256, each case with its launch plan; with ``before``, the parent's
+    kernel timed in turns with the tree's on the same inputs."""
     from repro_torch.kernels.distance_topk import (stream_topk_kernel,
                                                    stream_topk_plain)
+    from repro_torch.kernels.distance_topk.distance_topk import (
+        blocks_per_sm, kernel_plan)
     from repro_torch.kernels.distance.distance import norm_operand
 
     flops_peak, bytes_peak = peaks
@@ -230,9 +350,11 @@ def phase_stream_topk(torch, peaks):
     Qall = torch.randn((10_000, d), generator=gen, device="cuda")
     main = None
     for mode, k, nq in [("l2sq", 10, 10_000), ("l2sq", 10, 4096),
-                        ("l2sq", 100, 4096),
+                        ("l2sq", 100, 4096), ("l2sq", 256, 4096),
                         ("ip", 10, 4096), ("ip", 100, 4096),
-                        ("cos", 10, 4096), ("cos", 100, 4096)]:
+                        ("ip", 256, 4096),
+                        ("cos", 10, 4096), ("cos", 100, 4096),
+                        ("cos", 256, 4096)]:
         Xm, Q = X, Qall[:nq].contiguous()
         if mode == "cos":
             Xm = X / X.norm(dim=1, keepdim=True)
@@ -246,8 +368,22 @@ def phase_stream_topk(torch, peaks):
         plain_ms = (time.perf_counter() - t0) * 1e3
         tol = 2e-3
         max_err, outside, at_ties = compare(torch, got, want, k, tol)
-        ms = cuda_ms(torch, lambda: stream_topk_kernel(
-            Q, Xm, qsq, xsq, mode=mode, k=k), reps=3)
+        plan = kernel_plan(Q, Xm, k, mode)
+
+        def after():
+            return stream_topk_kernel(Q, Xm, qsq, xsq, mode=mode, k=k)
+
+        pair = None
+        if before is None:
+            ms = cuda_ms(torch, after, reps=3)
+        else:
+            old = before.stream_topk(Q, Xm, qsq, xsq, mode=mode, k=k)
+            pair = same_call(torch, lambda: before.stream_topk(
+                Q, Xm, qsq, xsq, mode=mode, k=k), after, reps=3)
+            pair["before_equals_after_bitwise"] = bool(
+                torch.equal(old[0], got[0]) and torch.equal(old[1], got[1]))
+            ms = sum(pair["after"]) / 2
+            del old
         flops = 2.0 * nq * n * d
         nbytes = 4.0 * (nq * d + n * d + nq + n) + 8.0 * nq * k
         bound_ms = max(flops / flops_peak, nbytes / bytes_peak) * 1e3
@@ -258,7 +394,13 @@ def phase_stream_topk(torch, peaks):
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "operations" if flops / flops_peak
                >= nbytes / bytes_peak else "bytes",
-               "tflops": flops / ms / 1e9}
+               "tflops": flops / ms / 1e9,
+               "plan": {"query_rows": plan.rows, "splits": plan.splits,
+                        "rows_per_split": plan.rows_per_split,
+                        "smem_bytes": plan.smem,
+                        "blocks_per_sm": blocks_per_sm(plan.rows, k, True,
+                                                       mode)},
+               "same_call": pair}
         log(json.dumps(rec))
         check(max_err <= tol, f"stream_topk {mode} k={k}: error {max_err}")
         check(outside == 0, f"stream_topk {mode} k={k}: {outside} id "
@@ -269,6 +411,45 @@ def phase_stream_topk(torch, peaks):
     del X, Qall
     torch.cuda.empty_cache()
     return main
+
+
+def phase_bruteforce_trace(torch, ds, before):
+    """One ``stream_topk_batched`` call at the main path's shape (the 10^4
+    queries of the main set against its 10^6 rows, k = 10, one query
+    block: the runner sends the batch whole) under ``torch.profiler``:
+    the device time of each kernel (the stream pass, the merge of the
+    splits, the torch norm ops) and the idle share of the call's window.
+    With ``before``, the same call on the parent's kernel."""
+    from repro_torch.kernels.distance_topk import ops, stream_topk_batched
+
+    X = torch.as_tensor(ds.train).to("cuda")   # as the index holds it
+
+    def call():   # the queries come from the host, as the runner's do
+        stream_topk_batched(ds.test, X, k=K, metric="euclidean",
+                            query_block=ds.test.shape[0], materialize=False)
+
+    runs = [("after", None)]
+    if before is not None:
+        runs = [("before", before.stream_topk), ("after", None)]
+    out = {}
+    for label, fn in runs:
+        kept = ops.stream_topk_kernel
+        if fn is not None:
+            ops.stream_topk_kernel = fn
+        try:
+            by_name, idle, window_ms = profile_call(torch, call)
+        finally:
+            ops.stream_topk_kernel = kept
+        rec = {"phase": "bruteforce_trace", "kernel": label,
+               "nq": int(ds.test.shape[0]), "n": int(ds.train.shape[0]),
+               "k": K, "window_ms": window_ms, "idle_share": idle,
+               "device_ms": {name[:120]: ms for name, ms in
+                             sorted(by_name.items(), key=lambda x: -x[1])}}
+        log(json.dumps(rec))
+        out[label] = rec
+    del X
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_rerank_topk(torch, peaks, ivf_state, Q):
@@ -539,13 +720,15 @@ def bf16_ulps(torch, got, want) -> float:
                   / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
 
 
-def phase_distance_matrix(torch, peaks):
+def phase_distance_matrix(torch, peaks, before):
     """Kernel 5 against its plain version at 1,024 queries x 10^6 rows x
     128 (SIFT-1M's width; a 4.1 GB output) in every mode, timed beside
     ``torch.mm(-Q, X.T)`` (ip mode's function in one library call, TF32
-    off), with the card's SM clock and power draw under each (l2sq); then the distances-out route of ``ops.stream_topk``: at k = 256
-    kernel 1 and the route through kernel 5 must agree bit for bit, and at
-    k = 257 and 1,000 the route must agree with the plain version."""
+    off), with the card's SM clock and power draw under each (l2sq), and
+    with ``before`` beside the parent's kernel 5 (l2sq, in turns); then
+    the distances-out route of ``ops.stream_topk``: at k = 256 kernel 1
+    and the route through kernel 5 must agree bit for bit, and at k = 257
+    and 1,000 the route must agree with the plain version."""
     from repro_torch.kernels.distance import (distance_matrix_kernel,
                                               distance_matrix_plain)
     from repro_torch.kernels.distance.distance import norm_operand
@@ -579,8 +762,14 @@ def phase_distance_matrix(torch, peaks):
             Q, Xm, qsq, xsq, mode=mode), reps=3)
         library_ms = cuda_ms(torch, lambda: torch.mm(-Q, Xm.T), reps=3)
         under = {}
+        if mode == "l2sq" and before is not None:
+            under["same_call"] = same_call(
+                torch, lambda: before.distance_matrix(Q, Xm, qsq, xsq,
+                                                      mode=mode),
+                lambda: distance_matrix_kernel(Q, Xm, qsq, xsq, mode=mode),
+                reps=3)
         if mode == "l2sq":
-            under = {"kernel_sm_mhz_w": clocks_under(
+            under |= {"kernel_sm_mhz_w": clocks_under(
                 torch, lambda: distance_matrix_kernel(Q, Xm, qsq, xsq,
                                                       mode=mode)),
                      "library_sm_mhz_w": clocks_under(
@@ -762,10 +951,12 @@ def phase_embedding_bag(torch, peaks):
 def profile_call(torch, fn):
     """One call of ``fn`` under ``torch.profiler``, after one call under
     it that is not read (the profiler's own first-launch cost): the device
-    time of each kernel it ran (ms, by name), the share of the call's
-    window (from the call to the end of ``torch.cuda.synchronize()``) in
-    which the device ran nothing, and the window (ms).  Fails if the trace
-    holds no device activity in the window."""
+    time of each kernel and copy it ran (ms, by name), the share of the
+    call's window (from the call to the end of
+    ``torch.cuda.synchronize()``) in which the device ran nothing, and the
+    window (ms).  Read from the profiler's raw events, which hold the
+    device work of torch's own ops as well as that of the port's kernels.
+    Fails if the trace holds no device activity in the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -775,27 +966,27 @@ def profile_call(torch, fn):
             with record_function(name):
                 fn()
                 torch.cuda.synchronize()
-    events = prof.events()
-    window = [e for e in events if e.name == "smoke_call"
-              and e.device_type == DeviceType.CPU]
+    events = prof.profiler.kineto_results.events()
+    window = [e for e in events if e.name() == "smoke_call"
+              and e.device_type() == DeviceType.CPU]
     check(len(window) == 1, "profiler: no window of the call in the trace")
-    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    w0, w1 = window[0].start_ns(), window[0].end_ns()
     spans, by_name = [], {}
     for e in events:
-        t0, t1 = e.time_range.start, e.time_range.end
-        if e.device_type != DeviceType.CUDA or e.name.startswith("smoke_") \
-                or t1 <= w0 or t0 >= w1:
+        t0, t1 = e.start_ns(), e.end_ns()
+        if e.device_type() != DeviceType.CUDA or e.name().startswith(
+                "smoke_") or t1 <= w0 or t0 >= w1:
             continue
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + (t1 - t0) / 1e6
         spans.append((max(t0, w0), min(t1, w1)))
     check(bool(spans), "profiler: the trace holds no device activity")
-    busy, reach = 0.0, w0
+    busy, reach = 0, w0
     for t0, t1 in sorted(spans):
         t0 = max(t0, reach)
         if t1 > t0:
             busy += t1 - t0
             reach = t1
-    return by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e3
+    return by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e6
 
 
 def decode_case(torch, peaks, q, k, v, lengths, label):
@@ -1173,8 +1364,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    check(not args or (len(args) == 2 and args[0] == "--before"),
+          f"usage: chip_smoke.py [--before DIR], not {args}")
     os.environ["REPRO_DATA_DIR"] = str(ROOT / "build" / "data")
     sys.path.insert(0, str(SRC))
+    before = Before(args[1]) if args else None
     t_start = time.perf_counter()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1189,13 +1384,13 @@ def main() -> int:
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 
     # 1. device + build
-    smi_line, clock_hz = phase_device(torch)
+    smi_line, clock_hz = phase_device(torch, before)
 
     # 2. kernels against their plain versions
-    k1 = phase_stream_topk(torch, peaks)
+    k1 = phase_stream_topk(torch, peaks, before)
     k3 = phase_hamming_topk(torch, peaks, clock_hz)
     k4 = phase_adc_scan(torch, peaks, clock_hz)
-    k5 = phase_distance_matrix(torch, peaks)
+    k5 = phase_distance_matrix(torch, peaks, before)
     k6 = phase_embedding_bag(torch, peaks)
     k7 = phase_decode_attention(torch, peaks)
     from repro_torch.ann import ivf
@@ -1204,6 +1399,7 @@ def main() -> int:
     ds = get_dataset(MAIN, device="cuda")
     check(ds.train.shape == (1_000_000, 128) and ds.test.shape[0] == 10_000,
           f"{MAIN} has shape {ds.train.shape} / {ds.test.shape}")
+    phase_bruteforce_trace(torch, ds, before)
     state = ivf.build(ds.train, metric="euclidean", n_clusters=1024,
                       rerank_kernel=True, device="cuda")
     k2 = phase_rerank_topk(torch, peaks, state, ds.test)

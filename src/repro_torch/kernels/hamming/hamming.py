@@ -24,8 +24,11 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.bits import popcount32
-from repro_torch.kernels.distance_topk.distance_topk import (merge_topk_rounds,
-                                                            pick_splits)
+from repro_torch.kernels.distance_topk.distance_topk import merge_topk_rounds
+
+BQ = 64             # queries per block (csrc/hamming_topk.cu)
+BN = 64             # corpus rows per tile
+MAX_SPLITS = 128    # csrc/topk_list.cuh
 
 
 def hamming_topk_plain(Q, X, n_valid: int, *, k: int, bq: int = 1024,
@@ -70,6 +73,15 @@ def hamming_dist_plain(Q, X, n_valid: int):
                        torch.full_like(d, float("inf")))
 
 
+def pick_splits(nq: int, n: int, device: torch.device) -> int:
+    """How many corpus ranges each query tile is split into, so that the
+    grid holds about eight blocks per SM (four resident, two waves)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-nq // BQ)
+    want = -(-8 * sms // q_tiles)
+    return max(1, min(want, MAX_SPLITS, -(-n // (4 * BN))))
+
+
 def _check(name, t, shape, device):
     if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
@@ -97,7 +109,7 @@ def hamming_topk_kernel(Q, X, n_valid: int, *, k: int):
     n_valid = max(0, min(int(n_valid), n))
     splits = pick_splits(nq, n, dev)
     per_split = -(-n // splits)
-    rows = -(-per_split // 64) * 64
+    rows = -(-per_split // BN) * BN
     splits = -(-n // rows)
     part_d = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)

@@ -634,3 +634,150 @@ def test_decode_attention_refuses_partitions_out_of_range(cuda):
             decode_attention_kernel(q, k, v, lengths, bs=16,
                                     part_blocks=part_blocks)
     assert decode_attention_kernel.launches == before
+
+
+# ------------------------- kernel 1 on kernel 5's tile: variants and plan
+def _off16(t):
+    """A copy of ``t`` whose base lies 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _stream_case(rng, cuda, nq, n, d, mode):
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    Q, X = _ints(rng, (nq, d)).to(cuda), _ints(rng, (n, d)).to(cuda)
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+    xsq[torch.as_tensor(rng.random(n) < 0.1).to(cuda)] = float("inf")
+    return Q, X, qsq, xsq
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "ip", "cos"])
+@pytest.mark.parametrize("k", [1, 10, 78, 79, 100, 255, 256])
+def test_stream_topk_kernel_variants_ragged(cuda, mode, k):
+    """Both variants (128 query rows up to k = 78, 64 from k = 79 or at
+    nq <= 64) at ragged nq, n and d, d % 4 != 0, and operands whose base is
+    not 16-byte aligned (scalar loads), 10 % of the rows masked: bit for
+    bit the plain version on integer-valued inputs."""
+    from repro_torch.kernels.distance_topk import (stream_topk_kernel,
+                                                   stream_topk_plain)
+
+    rng = np.random.default_rng(1000 + k)
+    for nq, n, d, off in [(131, 5003, 37, None), (65, 3001, 64, "X"),
+                          (64, 2000, 129, "Q"), (1, 4000, 20, None),
+                          (200, 129, 8, None)]:
+        Q, X, qsq, xsq = _stream_case(rng, cuda, nq, n, d, mode)
+        if off == "X":
+            X = _off16(X)
+        elif off == "Q":
+            Q = _off16(Q)
+        kk = min(k, n)
+        gd, gi = stream_topk_kernel(Q, X, qsq, xsq, mode=mode, k=kk)
+        wd, wi = stream_topk_plain(Q, X, qsq, xsq, mode=mode, k=kk, bn=1000)
+        assert torch.equal(gd, wd), (nq, n, d)
+        assert torch.equal(gi, wi), (nq, n, d)
+
+
+@pytest.mark.parametrize("nq,k", [(1, 10), (70, 10), (1, 256), (64, 256)])
+def test_stream_topk_kernel_at_max_splits(cuda, nq, k):
+    """A shape whose plan takes ``MAX_SPLITS`` corpus ranges (one query
+    tile, 256 corpus tiles, fewer blocks than SMs): 128 lists merged per
+    query."""
+    from repro_torch.kernels.distance_topk import (stream_topk_kernel,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance_topk.distance_topk import (MAX_SPLITS,
+                                                                 kernel_plan)
+
+    rng = np.random.default_rng(nq + k)
+    Q, X, qsq, xsq = _stream_case(rng, cuda, nq, 256 * 128, 16, "l2sq")
+    assert kernel_plan(Q, X, k, "l2sq").splits == MAX_SPLITS
+    gd, gi = stream_topk_kernel(Q, X, qsq, xsq, mode="l2sq", k=k)
+    wd, wi = stream_topk_plain(Q, X, qsq, xsq, mode="l2sq", k=k)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "angular", "ip"])
+@pytest.mark.parametrize("k", [10, 100])
+def test_stream_topk_valid_mask_on_the_kernel(cuda, metric, k):
+    """Rows masked through ``valid`` never come back, and the rest equal
+    the plain version with those rows at +inf."""
+    from repro_torch.kernels.distance_topk import (stream_topk,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance_topk.ops import _METRIC_TO_MODE
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    mode = _METRIC_TO_MODE[metric]
+    rng = np.random.default_rng(k)
+    Q, X = _ints(rng, (150, 24)).to(cuda), _ints(rng, (3000, 24)).to(cuda)
+    valid = torch.as_tensor(rng.random(3000) < 0.3).to(cuda)
+    gd, gi = stream_topk(Q, X, k=k, metric=metric, valid=valid)
+    xsq = norm_operand(X, mode)
+    xsq[~valid] = float("inf")
+    wd, wi = stream_topk_plain(Q, X, norm_operand(Q, mode), xsq, mode=mode,
+                               k=k)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+    assert bool(valid[gi.long()].all())
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "ip", "cos"])
+@pytest.mark.parametrize("k", [10, 100, 256])
+def test_stream_topk_kernel_identical_rows(cuda, mode, k):
+    """Every corpus row the same: every output of a block's first tile
+    survives, so the buffers overflow and the rounds run; all distances
+    tie, so the ids come out ascending, 0..k-1."""
+    from repro_torch.kernels.distance_topk import (stream_topk_kernel,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(k)
+    Q = _ints(rng, (130, 33)).to(cuda)
+    X = _ints(rng, (1, 33)).to(cuda).expand(3000, -1).contiguous()
+    qsq, xsq = norm_operand(Q, mode), norm_operand(X, mode)
+    gd, gi = stream_topk_kernel(Q, X, qsq, xsq, mode=mode, k=k)
+    wd, wi = stream_topk_plain(Q, X, qsq, xsq, mode=mode, k=k)
+    assert torch.equal(gd, wd)
+    ids = torch.arange(k, dtype=torch.int32, device=cuda).expand(130, -1)
+    assert torch.equal(gi, ids) and torch.equal(wi, ids)
+
+
+def test_stream_topk_plan_matches_the_kernel(cuda):
+    """The plan's shared bytes are the kernel's at every k and variant, and
+    the variant the plan takes is resident two blocks per SM where it has
+    128 query rows."""
+    from repro_torch.kernels.distance_topk.distance_topk import (
+        ROWS, _lib, blocks_per_sm, query_rows, smem_bytes)
+
+    lib = _lib()
+    for k in range(1, 257):
+        for rows in ROWS:
+            assert lib.stream_topk_smem_bytes(rows, k) == smem_bytes(rows, k)
+        rows = query_rows(10_000, k)
+        for mode in ("l2sq", "ip", "cos"):
+            per_sm = blocks_per_sm(rows, k, True, mode)
+            assert per_sm >= 1 and blocks_per_sm(rows, k, False, mode) >= 1
+            if rows == 128:
+                assert per_sm == 2, (k, mode)
+
+
+def test_every_k_up_to_max_k_launches_the_stream_kernel(cuda):
+    """k = 1..256 through the public op: one launch of kernel 1 each, none
+    of the distances-out route, and the plain version's answer."""
+    from repro_torch.kernels.distance import distance_matrix_kernel
+    from repro_torch.kernels.distance_topk import (stream_topk,
+                                                   stream_topk_kernel,
+                                                   stream_topk_plain)
+    from repro_torch.kernels.distance.distance import norm_operand
+
+    rng = np.random.default_rng(256)
+    Q, X = _ints(rng, (70, 12)).to(cuda), _ints(rng, (400, 12)).to(cuda)
+    qsq, xsq = norm_operand(Q, "l2sq"), norm_operand(X, "l2sq")
+    routes = distance_matrix_kernel.launches
+    for k in range(1, 257):
+        before = stream_topk_kernel.launches
+        gd, gi = stream_topk(Q, X, k=k)
+        assert stream_topk_kernel.launches == before + 1
+        wd, wi = stream_topk_plain(Q, X, qsq, xsq, mode="l2sq", k=k)
+        assert torch.equal(gd, wd) and torch.equal(gi, wi), k
+    assert distance_matrix_kernel.launches == routes
