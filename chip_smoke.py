@@ -4,10 +4,14 @@
     python3 chip_smoke.py [--before DIR]
 
 ``--before DIR`` names the ``src/repro_torch/kernels/csrc`` of a checkout
-of the parent commit: its kernels 1 and 5 are built beside the tree's and
-timed on the same inputs in the same run (parent, tree, tree, parent), and
-the BruteForce trace is taken on both.  Without it the run is the tree's
-alone.
+of the parent commit: its kernels 1, 2 and 5 are built beside the tree's
+and timed on the same inputs in the same run (parent, tree, tree, parent),
+the BruteForce and IVF traces are taken on both, and IVF's recall, search
+time and grid sweep are measured on both (the parent's IVF: the window of
+the probed lists through its kernel 2), on the main and angular sets;
+kernel 2's parent is also timed on each consumer's window, and each
+consumer's search with it in the new kernel's place.
+Without it the run is the tree's alone.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -18,8 +22,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     shapes, with times, bounds and errors: ``stream_topk`` (10^4 x 10^6 x
     128 at k = 10, and nq = 4,096 at k = 10, 100 and 256 in every mode,
     each with its launch plan: query rows per tile, splits, shared bytes,
-    resident blocks per SM) and ``rerank_topk`` (every mode), ``hamming_topk`` (10^4 x 10^6 codes of
-    256 bits, k = 10 and 100, plus a ragged, masked case) and ``adc_scan``
+    resident blocks per SM), ``rerank_topk``'s two entries on IVF's
+    window (the generic entry in every mode, the list entry in l2sq and
+    cos, bit for bit with the generic entry, each with its plan; both
+    within ``EXACT_REL`` of the exact value) and the generic entry on the
+    windows of its consumers, captured from their own searches (E2LSH and
+    IVF-PQ on the main set, HyperplaneLSH and RPForest on the angular set,
+    BitsamplingAnnoy and MIH on the Hamming set), ``hamming_topk`` (10^4 x
+    10^6 codes of 256 bits, k = 10 and 100, plus a ragged, masked case) and
+    ``adc_scan``
     (n = 10^6; PQ m = 16 and int8 m = 128 tables; C = 10, 256, 1024);
     ``distance_matrix`` (1,024 x 10^6 x 128, every mode; the k = 256 route
     through it equals ``stream_topk`` bit for bit; k = 257 and 1,000),
@@ -40,8 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     just before it and read just after:
       * main: ``blobs-euclidean-1000000-d128`` (SIFT-1M's shape: n = 10^6,
         d = 128, 10^4 queries, k = 10) with BruteForce(pallas) and IVF(1024
-        lists, rerank_kernel) over n_probes [1, 5, 10]; then BruteForce in
-        single-query mode on the first 1,000 queries;
+        lists, rerank_kernel: the list entry) over n_probes [1, 5, 10];
+        then BruteForce in single-query mode on the first 1,000 queries;
       * hamming: ``random-hamming-1000000-b256`` (sift-256-hamming's shape)
         with BruteForceHamming(pallas), BitsamplingAnnoy(rerank_kernel)
         over probe [1, 4, 16] and MultiIndexHashing(16 chunks,
@@ -61,8 +72,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         (both rerank_kernel) over their probe knobs.
     Before the paths, one ``stream_topk_batched`` call at the main path's
     shape (the 10^4 queries of the main set against its 10^6 rows, k = 10,
-    one query block as the runner sends it) under ``torch.profiler``: the
-    device time of each kernel and the idle share of the call's window.
+    one query block as the runner sends it) and one ``ivf.search`` (n_probes
+    5 under cap 10) under ``torch.profiler``: the device time of each
+    kernel and the idle share of the call's window; IVF's recall, search
+    time and sweep (``ivf_compare``) and its stages (coarse quantizer, pair
+    build, list kernel, merge).
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -78,7 +92,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     streaming top-k against the oracle at every n.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches on its path and its numbers.
+lists every kernel with its numbers and its launches, summed over the ANN
+paths of phase 3 (kernels 1-4 and kernel 2's list entry) or on the bench
+path (kernels 5-7).
 Datasets are cached under ``build/data`` beside this script.
 """
 
@@ -201,12 +217,13 @@ def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
 
 
 class Before:
-    """The parent commit's kernels 1 and 5, built from ``--before DIR`` and
-    launched with the parent's wrappers' arguments, for same-call
-    comparisons.  Kernel 1's parent took 64-query blocks and split the
-    corpus for about eight blocks per SM, in whole 64-row tiles."""
+    """The parent commit's kernels 1, 2 and 5, built from ``--before DIR``
+    and launched with the parent's wrappers' arguments, for same-call
+    comparisons.  The parent's kernel 1 takes a launch plan (query rows,
+    splits, rows per split): it is given this tree's ``kernel_plan``;
+    kernel 2's parent takes the window operands of the generic entry."""
 
-    SOURCES = ("stream_topk", "distance_matrix")
+    SOURCES = ("stream_topk", "distance_matrix", "rerank_topk")
 
     def __init__(self, src_dir: str):
         self.src = Path(src_dir).resolve()
@@ -241,34 +258,34 @@ class Before:
             self.libs[name] = ctypes.CDLL(str(self.out / f"lib{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = self.libs["stream_topk"].stream_topk_launch
-        fn.argtypes = [p] * 8 + [i] * 7 + [p]
+        fn.argtypes = [p] * 8 + [i] * 8 + [p]
         fn.restype = i
         fn = self.libs["distance_matrix"].distance_matrix_launch
         fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, i, p]
+        fn.restype = i
+        fn = self.libs["rerank_topk"].rerank_topk_launch
+        fn.argtypes = [p] * 8 + [i] * 5 + [p]
         fn.restype = i
 
     def stream_topk(self, Q, X, qsq, xsq, *, mode: str, k: int):
         import torch
 
-        from repro_torch.kernels.distance_topk.distance_topk import MODES
+        from repro_torch.kernels.distance_topk.distance_topk import (
+            MODES, kernel_plan)
 
         nq, d = Q.shape
         n = X.shape[0]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = max(1, min(-(-8 * sms // -(-nq // 64)), 128,
-                            -(-n // 256)))
-        per_split = -(-n // splits)
-        rows = -(-per_split // 64) * 64
-        splits = -(-n // rows)
-        part_d = torch.empty((splits, nq, k), device="cuda")
-        part_i = torch.empty((splits, nq, k), dtype=torch.int32,
+        plan = kernel_plan(Q, X, k, mode)
+        part_d = torch.empty((plan.splits, nq, k), device="cuda")
+        part_i = torch.empty((plan.splits, nq, k), dtype=torch.int32,
                              device="cuda")
         out_d = torch.empty((nq, k), device="cuda")
         out_i = torch.empty((nq, k), dtype=torch.int32, device="cuda")
         status = self.libs["stream_topk"].stream_topk_launch(
             Q.data_ptr(), X.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), nq, n, d, k, MODES[mode], splits, rows,
+            out_i.data_ptr(), nq, n, d, k, MODES[mode], plan.rows,
+            plan.splits, plan.rows_per_split,
             torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"before stream_topk: CUDA error {status}")
         return out_d, out_i
@@ -287,6 +304,42 @@ class Before:
             torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"before distance_matrix: CUDA error {status}")
         return out
+
+
+    def rerank_topk(self, cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
+                    k: int):
+        import torch
+
+        from repro_torch.kernels.rerank_topk.rerank_topk import MODES
+
+        b, C = cand_rows.shape
+        out_d = torch.empty((b, k), device="cuda")
+        out_i = torch.empty((b, k), dtype=torch.int32, device="cuda")
+        status = self.libs["rerank_topk"].rerank_topk_launch(
+            cand_rows.data_ptr(), Q.data_ptr(), qsq.data_ptr(),
+            cand_ids.data_ptr(), pen.data_ptr(), X.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), b, C, X.shape[1], k,
+            MODES[mode], torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"before rerank_topk: CUDA error {status}")
+        return out_d, out_i
+
+
+def parent_ivf_search(torch, state, Q, before, *, n_probes, k: int = K,
+                      max_probes: int = 10):
+    """IVF's fp32 search as the parent ran it with ``rerank_kernel``: the
+    window of the probed lists, the kernel's operands, the parent's
+    kernel 2."""
+    from repro_torch.ann import ivf
+    from repro_torch.kernels.rerank_topk.ops import kernel_operands
+
+    Qp, cand, valid = ivf.probe_window(state, Q, n_probes=n_probes,
+                                       max_probes=max_probes)
+    qsq = torch.sum(Qp * Qp, dim=1, keepdim=True) \
+        if state.metric == "euclidean" else None
+    ops = kernel_operands(Qp, state["X"], qsq, state.arrays.get("xsq"), cand,
+                          ~valid, state["ids"], state.metric,
+                          min(k, cand.shape[1]))
+    return before.rerank_topk(**ops)
 
 
 def same_call(torch, before_fn, after_fn, reps: int):
@@ -452,34 +505,59 @@ def phase_bruteforce_trace(torch, ds, before):
     return out
 
 
-def phase_rerank_topk(torch, peaks, ivf_state, Q):
-    """Kernel 2 against its plain version on the windows IVF produces for
-    the main path (n_probes=5 under the max_probes=10 cap), in l2sq, cos
-    and ham (ham: 128-bit codes drawn for the same rows)."""
+def _entry_rec(name, rec, ms, pair, flops, nbytes, peaks):
+    flops_peak, bytes_peak = peaks
+    return dict(rec, kernel=name, ms=ms, same_call=pair,
+                bound_ms=max(flops / flops_peak, nbytes / bytes_peak) * 1e3,
+                bound_by="operations" if flops / flops_peak
+                >= nbytes / bytes_peak else "bytes",
+                gbytes_per_s=nbytes / ms / 1e6, tflops=flops / ms / 1e9)
+
+
+def phase_rerank_topk(torch, peaks, ivf_state, Q, before):
+    """Kernel 2's two entries against the plain version on the window IVF
+    probes for the main path (n_probes 5 under the max_probes 10 cap, as
+    0-d device tensors like the grid sweep's): the generic entry in l2sq,
+    cos and ham (128-bit codes drawn for the same rows) at k = 10 and 100;
+    the list entry (IVF's route) in l2sq and cos at k = 10, 100 and 256,
+    each bit for bit with the generic entry on the window.  Each float
+    case must lie within ``EXACT_REL`` of the exact value of the kernel's
+    expression (``err_vs_exact``).  With ``before``, the parent's kernel
+    timed in turns with each new entry on the same operands, and its
+    error against the exact value."""
     from repro_torch.ann import ivf
-    from repro_torch.kernels.rerank_topk import (rerank_topk_kernel,
+    from repro_torch.kernels.rerank_topk import (EXACT_REL, err_vs_exact,
+                                                 lists, rerank_lists_kernel,
+                                                 rerank_topk_kernel,
                                                  rerank_topk_plain)
     from repro_torch.kernels.rerank_topk.ops import kernel_operands
 
-    flops_peak, bytes_peak = peaks
-    Qp, cand, valid = ivf.probe_window(ivf_state, Q, n_probes=5,
-                                       max_probes=10)
+    n_probes = torch.tensor(5, dtype=torch.int32, device="cuda")
+    Qp, probes = ivf.coarse_probes(ivf_state, Q, n_probes=n_probes,
+                                   max_probes=10)
+    X = ivf_state["X"]
+    n, d = X.shape
+    starts, sizes = ivf_state["starts"], ivf_state["sizes"]
+    ids, M = ivf_state["ids"], ivf_state.stat("pad")
+    cand, valid = lists.list_window(probes, starts, sizes, M, n,
+                                    n_probes=n_probes)
     b, C = cand.shape
     bad = ~valid
     rows = cand[valid]
     n_valid = int(rows.numel())
     n_rows = int(torch.unique(rows).numel())
     del rows
-    X = ivf_state["X"]
-    n, d = X.shape
-    log(json.dumps({"phase": "rerank_window", "b": b, "C": C,
-                    "pad": ivf_state.stat("pad"), "valid_candidates": n_valid,
-                    "distinct_rows": n_rows}))
+    probed = torch.zeros(starts.shape[0], dtype=torch.bool, device="cuda")
+    probed[probes[:, :5].reshape(-1)] = True
+    list_rows = int(torch.clamp_max(sizes[probed], M).sum())
+    log(json.dumps({"phase": "rerank_window", "b": b, "C": C, "pad": M,
+                    "valid_candidates": n_valid, "distinct_rows": n_rows,
+                    "probed_list_rows": list_rows}))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    main = None
+    out = {}
     for metric, k in [("euclidean", 10), ("euclidean", 100),
-                      ("angular", 10), ("angular", 100),
-                      ("hamming", 10), ("hamming", 100)]:
+                      ("euclidean", 256), ("angular", 10), ("angular", 100),
+                      ("angular", 256), ("hamming", 10), ("hamming", 100)]:
         if metric == "euclidean":
             Xm, Qm = X, Qp
             qsq = torch.sum(Qm * Qm, dim=1, keepdim=True)
@@ -494,8 +572,8 @@ def phase_rerank_topk(torch, peaks, ivf_state, Q):
             Qm = torch.randint(-2**31, 2**31 - 1, (b, 4), generator=gen,
                                device="cuda", dtype=torch.int32)
             qsq = xsq = None
-        ops = kernel_operands(Qm, Xm, qsq, xsq, cand, bad, ivf_state["ids"],
-                              metric, k)
+        ops = kernel_operands(Qm, Xm, qsq, xsq, cand, bad, ids, metric, k)
+        mode = ops["mode"]
         got = rerank_topk_kernel(**ops)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -505,42 +583,328 @@ def phase_rerank_topk(torch, peaks, ivf_state, Q):
         tol = 0.0 if metric == "hamming" else 2e-3
         max_err, outside, at_ties = compare(torch, got, want, k, tol,
                                             exact=metric == "hamming")
-        ms = cuda_ms(torch, lambda: rerank_topk_kernel(**ops), reps=3)
-        words = Xm.shape[1]
-        flops = 2.0 * n_valid * words
-        nbytes = (12.0 * b * C + 4.0 * b * (words + 1)
-                  + 4.0 * n_rows * words + 8.0 * b * k)
-        bound_ms = max(flops / flops_peak, nbytes / bytes_peak) * 1e3
-        mode = ops["mode"]
-        rec = {"kernel": "rerank_topk", "mode": mode, "k": k, "b": b,
-               "C": C, "d": words, "max_abs_err": max_err, "tol": tol,
-               "id_mismatch_outside_near_ties": outside,
-               "id_mismatch_at_near_ties": at_ties, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": "operations" if flops / flops_peak
-               >= nbytes / bytes_peak else "bytes",
-               "gbytes_per_s": nbytes / ms / 1e6}
-        log(json.dumps(rec))
-        check(max_err <= tol, f"rerank_topk {mode} k={k}: error {max_err}")
-        check(outside == 0, f"rerank_topk {mode} k={k}: {outside} id "
+        check(max_err <= tol and outside == 0,
+              f"rerank_topk {mode} k={k}: error {max_err}, {outside} id "
               f"mismatches outside near ties")
-        if main is None:
-            main = rec
-        del ops, got, want, Xm, Qm
-    del Qp, cand, valid, bad
+
+        def generic():
+            return rerank_topk_kernel(**ops)
+
+        old = pair_g = None
+        if before is not None:
+            old = before.rerank_topk(**ops)
+            pair_g = same_call(torch, lambda: before.rerank_topk(**ops),
+                               generic, reps=3)
+            ms = sum(pair_g["after"]) / 2
+        else:
+            ms = cuda_ms(torch, generic, reps=3)
+        words = Xm.shape[1]
+        base = {"mode": mode, "k": k, "b": b, "C": C, "d": words,
+                "max_abs_err": max_err, "tol": tol,
+                "id_mismatch_outside_near_ties": outside,
+                "id_mismatch_at_near_ties": at_ties, "plain_ms": plain_ms}
+        if metric != "hamming":
+            err, rel = err_vs_exact(got, **ops)
+            base.update(max_err_vs_exact=err, max_rel_err_vs_exact=rel,
+                        exact_rel_bound=EXACT_REL)
+            check(rel <= EXACT_REL, f"rerank_topk {mode} k={k}: error "
+                  f"{err} ({rel} of the cross term's weight) against the "
+                  f"exact value, above {EXACT_REL}")
+            if old is not None:
+                err, rel = err_vs_exact(old, **ops)
+                base.update(before_max_err_vs_exact=err,
+                            before_max_rel_err_vs_exact=rel)
+        rec = _entry_rec("rerank_topk", base, ms, pair_g,
+                         2.0 * n_valid * words,
+                         12.0 * b * C + 4.0 * b * (words + 1)
+                         + 4.0 * n_rows * words + 8.0 * b * k, peaks)
+        log(json.dumps(rec))
+        out[("generic", mode, k)] = rec
+        if metric != "hamming":
+            qv = qsq.reshape(b) if qsq is not None else \
+                torch.zeros(b, device="cuda")
+
+            def listed():
+                return rerank_lists_kernel(
+                    Qm, qv, Xm, xsq, probes, starts, sizes, ids, M=M,
+                    mode=mode, k=k, n_probes=n_probes)
+
+            got_l = listed()
+            same = bool(torch.equal(got_l[0], got[0])
+                        and torch.equal(got_l[1], got[1]))
+            check(same, f"rerank_lists {mode} k={k}: not bit for bit the "
+                  f"generic entry on the window")
+            l_err, l_outside, l_ties = compare(torch, got_l, want, k, tol)
+            pair_l = None
+            if before is not None:
+                pair_l = same_call(torch, lambda: before.rerank_topk(**ops),
+                                   listed, reps=3)
+                l_ms = sum(pair_l["after"]) / 2
+            else:
+                l_ms = cuda_ms(torch, listed, reps=3)
+            plan = lists.launch_plan(b, probes.shape[1], starts.shape[0],
+                                     M, k)
+            # each probed list's rows once, the queries, the partial lists
+            # of the live slots and the outputs
+            nbytes = 4.0 * words * list_rows + 4.0 * b * (words + 1) \
+                + 8.0 * b * 5 * plan.kp + 8.0 * b * k
+            rec = _entry_rec(
+                "rerank_lists", dict(base, max_abs_err=l_err,
+                                     id_mismatch_outside_near_ties=l_outside,
+                                     id_mismatch_at_near_ties=l_ties,
+                                     bitwise_equal_to_generic=same,
+                                     plan=plan._asdict(),
+                                     blocks_per_sm=lists.blocks_per_sm(
+                                         plan.kp, True, mode)),
+                l_ms, pair_l, 2.0 * n_valid * words, nbytes, peaks)
+            log(json.dumps(rec))
+            out[("lists", mode, k)] = rec
+        del ops, got, want, Xm, Qm, old
+    del Qp, probes, cand, valid, bad
     torch.cuda.empty_cache()
-    return main
+    return out[("generic", "l2sq", 10)], out[("lists", "l2sq", 10)]
+
+
+def consumers():
+    """The generic entry's consumers, each with its dataset, its build as
+    its path's ``config()`` gives it and a search at the path's largest
+    knob."""
+    from repro_torch.ann import hamming, ivf, lsh, rpforest
+
+    return [
+        ("E2LSH n_probes 16", MAIN,
+         lambda X: lsh.e2lsh_build(X, n_tables=8, n_hashes=8, width=4.0,
+                                   cap=64, seed=0, rerank_kernel=True,
+                                   device="cuda"),
+         lambda st, Q: lsh.e2lsh_search(st, Q, k=K, n_probes=16)),
+        ("IVF-PQ n_probes 10 n_cand 1000", MAIN,
+         lambda X: ivf.build(X, metric="euclidean", n_clusters=1024,
+                             n_iters=10, seed=0, rerank_kernel=True,
+                             quantize=PQ16, device="cuda"),
+         lambda st, Q: ivf.search(st, Q, k=K, n_probes=10, n_cand=1000)),
+        ("HyperplaneLSH n_probes 16", ANGULAR,
+         lambda X: lsh.hyperplane_build(X, n_tables=8, n_bits=16, cap=64,
+                                        seed=0, rerank_kernel=True,
+                                        device="cuda"),
+         lambda st, Q: lsh.hyperplane_search(st, Q, k=K, n_probes=16)),
+        ("RPForest probe 16", ANGULAR,
+         lambda X: rpforest.build(X, metric="angular", n_trees=10,
+                                  leaf_size=32, seed=0, rerank_kernel=True,
+                                  device="cuda"),
+         lambda st, Q: rpforest.search(st, Q, k=K, probe=16)),
+        ("BitsamplingAnnoy probe 16", HAMMING,
+         lambda X: hamming.bitsampling_build(X, n_trees=10, leaf_size=32,
+                                             seed=0, rerank_kernel=True,
+                                             device="cuda"),
+         lambda st, Q: hamming.bitsampling_search(st, Q, k=K, probe=16)),
+        ("MIH radius 1", HAMMING,
+         lambda X: hamming.mih_build(X, n_chunks=16, cap=128, seed=0,
+                                     rerank_kernel=True, device="cuda"),
+         lambda st, Q: hamming.mih_search(st, Q, k=K, radius=1)),
+    ]
+
+
+def phase_rerank_consumers(torch, peaks, main_ds, before):
+    """The generic entry on the windows of its consumers (``consumers()``),
+    the operands captured from each one's own search: against the plain
+    version (distances within 2e-3 and no id mismatch outside near ties;
+    ham bit for bit) and, in l2sq and cos, within ``EXACT_REL`` of the
+    exact value.  With ``before``, the parent's kernel timed in turns with
+    the new one on the captured operands, and the whole search (host
+    clock, synchronized, the queries from the host) timed with each kernel
+    in its place, parent, new, new, parent."""
+    from repro_torch.data import get_dataset
+    from repro_torch.kernels.rerank_topk import ops as rerank_ops
+    from repro_torch.kernels.rerank_topk import (EXACT_REL, err_vs_exact,
+                                                 rerank_topk_plain)
+
+    kept = rerank_ops.rerank_topk_kernel
+
+    def search_with(kernel, st, Q, search):
+        rerank_ops.rerank_topk_kernel = kernel
+        try:
+            return search(st, Q)
+        finally:
+            rerank_ops.rerank_topk_kernel = kept
+
+    def host_ms(fn, reps=2):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    out, loaded = [], {MAIN: main_ds}
+    for label, name, build, search in consumers():
+        if name not in loaded:
+            loaded = {MAIN: main_ds, name: get_dataset(name, device="cuda")}
+        ds = loaded[name]
+        st = build(ds.train)
+        captured = []
+
+        def capture(**ops):
+            captured.append(ops)
+            return kept(**ops)
+
+        search_with(capture, st, ds.test, search)
+        check(len(captured) == 1, f"{label}: {len(captured)} rerank kernel "
+              f"calls in one search, not 1")
+        ops = captured[0]
+        mode, k = ops["mode"], ops["k"]
+        b, C = ops["cand_rows"].shape
+        words = ops["X"].shape[1]
+        valid = (ops["cand_ids"] >= 0) & torch.isfinite(ops["pen"])
+        n_valid = int(valid.sum())
+        n_rows = int(torch.unique(ops["cand_rows"][valid]).numel())
+        got = kept(**ops)
+        want = rerank_topk_plain(**dict(ops, k=k + 1))
+        tol = 0.0 if mode == "ham" else 2e-3
+        max_err, outside, at_ties = compare(torch, got, want, k, tol,
+                                            exact=mode == "ham")
+        check(max_err <= tol and outside == 0,
+              f"rerank_topk on {label}'s window: error {max_err}, "
+              f"{outside} id mismatches outside near ties")
+        base = {"window": label, "mode": mode, "k": k, "b": b, "C": C,
+                "d": words, "valid_candidates": n_valid,
+                "distinct_rows": n_rows, "max_abs_err": max_err, "tol": tol,
+                "id_mismatch_at_near_ties": at_ties}
+        if mode != "ham":
+            err, rel = err_vs_exact(got, **ops)
+            base.update(max_err_vs_exact=err, max_rel_err_vs_exact=rel,
+                        exact_rel_bound=EXACT_REL)
+            check(rel <= EXACT_REL, f"rerank_topk on {label}'s window: "
+                  f"{rel} of the cross term's weight from the exact value, "
+                  f"above {EXACT_REL}")
+        pair = None
+        if before is not None:
+            pair = same_call(torch, lambda: before.rerank_topk(**ops),
+                             lambda: kept(**ops), reps=3)
+            ms = sum(pair["after"]) / 2
+
+            def parent(**o):
+                return before.rerank_topk(**o)
+
+            def run(kernel):
+                return host_ms(lambda: search_with(kernel, st, ds.test,
+                                                   search))
+
+            nq = int(ds.test.shape[0])
+            searches = {"before": [run(parent)], "after": [run(kept)]}
+            searches["after"].append(run(kept))
+            searches["before"].append(run(parent))
+            base["search_ms"] = searches
+            base["search_qps"] = {key: nq / min(v) * 1e3
+                                  for key, v in searches.items()}
+        else:
+            ms = cuda_ms(torch, lambda: kept(**ops), reps=3)
+        rec = _entry_rec(
+            "rerank_topk", base, ms, pair, 2.0 * n_valid * words,
+            12.0 * b * C + 4.0 * b * (words + 1) + 4.0 * n_rows * words
+            + 8.0 * b * k, peaks)
+        log(json.dumps(rec))
+        out.append(rec)
+        del st, ops, got, want, captured, valid
+        torch.cuda.empty_cache()
+    del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ivf_trace(torch, ds, state, before):
+    """One ``ivf.search`` at the main path's window (10^4 queries from the
+    host, n_probes 5 under cap 10) under ``torch.profiler``: the device
+    time of each kernel and the idle share of the call's window; with
+    ``before``, the parent's search (the window, the operands, the
+    parent's kernel 2) the same way."""
+    from repro_torch.ann import ivf
+
+    runs = [("after", lambda: ivf.search(state, ds.test, k=K, n_probes=5,
+                                         max_probes=10))]
+    if before is not None:
+        runs.insert(0, ("before", lambda: parent_ivf_search(
+            torch, state, ds.test, before, n_probes=5)))
+    out = {}
+    for label, fn in runs:
+        by_name, idle, window_ms = profile_call(torch, fn)
+        rec = {"phase": "ivf_trace", "kernel": label,
+               "nq": int(ds.test.shape[0]), "n_probes": 5, "max_probes": 10,
+               "window_ms": window_ms, "idle_share": idle,
+               "device_ms": {name[:120]: ms for name, ms in
+                             sorted(by_name.items(), key=lambda x: -x[1])}}
+        log(json.dumps(rec))
+        out[label] = rec
+    return out
+
+
+def phase_ivf_compare(torch, name, ds, state, before):
+    """IVF's recall at n_probes 1, 5 and 10 under cap 10 (the runner's
+    measure: distances recomputed, against exact ground truth), its search
+    time at n_probes 5 and the three points of the grid sweep back to
+    back (host clock, synchronized, best of two; the queries from the
+    host, each point's n_probes a 0-d device tensor as ``bind_search``
+    passes it).  With ``before``, the parent's search the same way, whose
+    recall must equal the new path's within 1e-4."""
+    from repro_torch.ann import ivf
+    from repro_torch.core.experiment import _distances_for
+    from repro_torch.core.metrics import recall_from_arrays
+
+    def new(n_probes):
+        return ivf.search(state, ds.test, k=K, max_probes=10,
+                          n_probes=torch.tensor(n_probes, dtype=torch.int32,
+                                                device="cuda"))
+
+    def old(n_probes):
+        return parent_ivf_search(torch, state, ds.test, before,
+                                 n_probes=n_probes)
+
+    def best_ms(fn, reps=2):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    routes = [("after", new)] + ([("before", old)] if before else [])
+    nq = int(ds.test.shape[0])
+    rec = {"phase": "ivf_compare", "dataset": name, "nq": nq}
+    for label, search in routes:
+        search(5)
+        recalls = []
+        for n_probes in (1, 5, 10):
+            ids = search(n_probes)[1].cpu().numpy()
+            dist = _distances_for(ds, ids, "cuda")
+            recalls.append(float(np.mean(recall_from_arrays(
+                dist, ds.distances, K, neighbors=ids))))
+        sweep_ms = best_ms(lambda: [search(p) for p in (1, 5, 10)])
+        rec[label] = {"recall": recalls,
+                      "search_ms_n_probes_5": best_ms(lambda: search(5), 3),
+                      "sweep_ms": sweep_ms,
+                      "sweep_qps_uniform_share": 3 * nq / sweep_ms * 1e3}
+    log(json.dumps(rec))
+    if before is not None:
+        diff = max(abs(a - b) for a, b in zip(rec["after"]["recall"],
+                                              rec["before"]["recall"]))
+        check(diff <= 1e-4, f"{name}: IVF recall moved by {diff} from the "
+              f"parent's: {rec}")
+    return rec
 
 
 def phase_breakdown(torch, ivf_state, Q):
     """Where a query batch spends its time, stage by stage (host clock
     around synchronized stages): IVF at the main path's window (10^4
-    queries, n_probes=5 under cap 10) and one BruteForce query alone."""
+    queries from the host, n_probes 5 under cap 10: the coarse quantizer,
+    the pair build, the list kernel, the merge), IVF's whole search at
+    n_probes 1, 5 and 10 under the cap, and one BruteForce query alone."""
     from repro_torch.ann import ivf
     from repro_torch.kernels.distance_topk import stream_topk_kernel
     from repro_torch.kernels.distance.distance import norm_operand
-    from repro_torch.kernels.rerank_topk import rerank_topk_kernel
-    from repro_torch.kernels.rerank_topk.ops import kernel_operands
+    from repro_torch.kernels.rerank_topk import lists
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -549,22 +913,32 @@ def phase_breakdown(torch, ivf_state, Q):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    timed(lambda: ivf.search(ivf_state, Q, k=K, n_probes=5, max_probes=10))
-    (Qp, cand, valid), window_ms = timed(lambda: ivf.probe_window(
-        ivf_state, Q, n_probes=5, max_probes=10))
-    qsq = torch.sum(Qp * Qp, dim=1, keepdim=True)
-    ops, operands_ms = timed(lambda: kernel_operands(
-        Qp, ivf_state["X"], qsq, ivf_state["xsq"], cand, ~valid,
-        ivf_state["ids"], "euclidean", K))
-    _, kernel_ms = timed(lambda: rerank_topk_kernel(**ops))
-    _, search_ms = timed(lambda: ivf.search(ivf_state, Q, k=K, n_probes=5,
-                                            max_probes=10))
+    st = ivf_state
+    n_p = torch.tensor(5, dtype=torch.int32, device="cuda")
+    timed(lambda: ivf.search(st, Q, k=K, n_probes=n_p, max_probes=10))
+    (Qp, probes), coarse_ms = timed(lambda: ivf.coarse_probes(
+        st, Q, n_probes=n_p, max_probes=10))
+    M, n_lists = st.stat("pad"), st["starts"].shape[0]
+    plan = lists.launch_plan(Qp.shape[0], probes.shape[1], n_lists, M, K)
+    pairs, pair_ms = timed(lambda: lists.pair_build(
+        probes, n_p, n_lists, st["sizes"]))
+    qsq = torch.sum(Qp * Qp, dim=1)
+    (part_d, part_i), list_ms = timed(lambda: lists.list_pass(
+        Qp, qsq, st["X"], st["xsq"], st["ids"], None, st["starts"],
+        st["sizes"], pairs, plan, M=M, mode="l2sq"))
+    _, merge_ms = timed(lambda: lists.merge_pass(part_d, part_i, plan, n_p))
+    search_ms = {}
+    for n_probes in (1, 5, 10):
+        _, search_ms[n_probes] = timed(lambda: ivf.search(
+            st, Q, k=K, max_probes=10, n_probes=torch.tensor(
+                n_probes, dtype=torch.int32, device="cuda")))
     log(json.dumps({"phase": "breakdown", "what": "IVF search, b=10000",
-                    "probe_window_ms": window_ms,
-                    "kernel_operands_ms": operands_ms,
-                    "rerank_kernel_ms": kernel_ms,
-                    "search_total_ms": search_ms}))
-    del Qp, cand, valid, ops
+                    "coarse_quantizer_ms": coarse_ms,
+                    "pair_build_ms": pair_ms, "list_kernel_ms": list_ms,
+                    "merge_ms": merge_ms, "plan": plan._asdict(),
+                    "search_total_ms": search_ms[5],
+                    "search_ms_by_n_probes": search_ms}))
+    del Qp, probes, pairs, part_d, part_i
     X = ivf_state["X"]
     q1 = torch.as_tensor(Q[:1]).to("cuda")
     qsq1, xsq = norm_operand(q1, "l2sq"), norm_operand(X, "l2sq")
@@ -1229,10 +1603,12 @@ def _counted():
     from repro_torch.kernels.hamming import (hamming_dist_kernel,
                                              hamming_topk_kernel)
     from repro_torch.kernels.rerank_topk import (rerank_dist_kernel,
+                                                 rerank_lists_kernel,
                                                  rerank_topk_kernel)
 
     return {"stream_topk": stream_topk_kernel,
             "rerank_topk": rerank_topk_kernel,
+            "rerank_lists": rerank_lists_kernel,
             "hamming_topk": hamming_topk_kernel, "adc_scan": adc_scan_kernel,
             "distance_matrix": distance_matrix_kernel,
             "embedding_bag": embedding_bag_kernel,
@@ -1402,28 +1778,44 @@ def main() -> int:
     phase_bruteforce_trace(torch, ds, before)
     state = ivf.build(ds.train, metric="euclidean", n_clusters=1024,
                       rerank_kernel=True, device="cuda")
-    k2 = phase_rerank_topk(torch, peaks, state, ds.test)
+    k2, k2_lists = phase_rerank_topk(torch, peaks, state, ds.test, before)
+    phase_rerank_consumers(torch, peaks, ds, before)
+    phase_ivf_trace(torch, ds, state, before)
+    phase_ivf_compare(torch, MAIN, ds, state, before)
     phase_breakdown(torch, state, ds.test)
     routes = phase_routes(torch, state, ds.test)
     del state
     torch.cuda.empty_cache()
+    if before is not None:
+        ads = get_dataset(ANGULAR, device="cuda")
+        astate = ivf.build(ads.train, metric="angular", n_clusters=1024,
+                           rerank_kernel=True, device="cuda")
+        phase_ivf_compare(torch, ANGULAR, ads, astate, before)
+        del ads, astate
+        torch.cuda.empty_cache()
 
-    # 3. the paths, through the runner
-    main_launches, _ = run_path(torch, "main_path", MAIN,
-                                {"bruteforce": 1, "ivf": 3}, ds.n,
-                                ("stream_topk", "rerank_topk"))
+    # 3. the paths, through the runner; ``paths`` sums each kernel's
+    # launches over them (single-query runs apart)
+    paths = {}
+
+    def path(*args):
+        launches, rows = run_path(torch, *args)
+        for name, count in launches.items():
+            paths[name] = paths.get(name, 0) + count
+        return rows
+
+    path("main_path", MAIN, {"bruteforce": 1, "ivf": 3}, ds.n,
+         ("stream_topk", "rerank_lists"))
     run_single(torch, "single_query", ds, "bruteforce", "stream_topk")
     torch.cuda.empty_cache()
 
-    comp_launches, _ = run_path(
-        torch, "compressed", MAIN, {"bf_pq": 3, "bf_int8": 1, "ivf_pq": 2},
-        ds.n, ("adc_scan", "rerank_topk"))
-    run_path(torch, "lsh_euclidean", MAIN, {"e2lsh": 3}, ds.n,
-             ("rerank_topk",))
+    path("compressed", MAIN, {"bf_pq": 3, "bf_int8": 1, "ivf_pq": 2}, ds.n,
+         ("adc_scan", "rerank_topk"))
+    path("lsh_euclidean", MAIN, {"e2lsh": 3}, ds.n, ("rerank_topk",))
     del ds
     torch.cuda.empty_cache()
-    _, planted = run_path(torch, "compressed_planted", PLANTED, {"bf_pq": 3},
-                          1_000_000, ("adc_scan",))
+    planted = path("compressed_planted", PLANTED, {"bf_pq": 3}, 1_000_000,
+                   ("adc_scan",))
     deepest = planted["bf_pq"][-1]["recall"]
     check(deepest >= 1.0 - PQ_EPS,
           f"{PLANTED}: PQ recall {deepest} at n_cand 1000 is below "
@@ -1433,17 +1825,17 @@ def main() -> int:
     hds = get_dataset(HAMMING, device="cuda")
     check(hds.train.shape == (1_000_000, 8) and hds.test.shape[0] == 10_000,
           f"{HAMMING} has shape {hds.train.shape} / {hds.test.shape}")
-    ham_launches, _ = run_path(torch, "hamming", HAMMING,
-                               {"bfh": 1, "annoy": 3, "mih": 2}, hds.n,
-                               ("hamming_topk", "rerank_topk"))
+    path("hamming", HAMMING, {"bfh": 1, "annoy": 3, "mih": 2}, hds.n,
+         ("hamming_topk", "rerank_topk"))
     run_single(torch, "hamming_single_query", hds, "bfh", "hamming_topk")
     del hds
     torch.cuda.empty_cache()
 
-    run_path(torch, "angular", ANGULAR,
-             {"bruteforce": 1, "ivf": 3, "hyperplane": 3, "rpforest": 3},
-             200_000, ("stream_topk", "rerank_topk"))
+    path("angular", ANGULAR,
+         {"bruteforce": 1, "ivf": 3, "hyperplane": 3, "rpforest": 3},
+         200_000, ("stream_topk", "rerank_topk", "rerank_lists"))
     torch.cuda.empty_cache()
+    log(json.dumps({"phase": "ann_paths", "launches": paths}))
 
     # 4. the bench path
     bench_launches = phase_bench(torch)
@@ -1454,7 +1846,7 @@ def main() -> int:
         {"name": "stream_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/stream_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:122",
-         "launches": main_launches["stream_topk"],
+         "launches": paths["stream_topk"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
@@ -1462,15 +1854,23 @@ def main() -> int:
         {"name": "rerank_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rerank_topk.cu",
          "replaces": "src/repro/kernels/rerank_topk/rerank_topk.py:153",
-         "launches": main_launches["rerank_topk"],
+         "launches": paths["rerank_topk"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
          "library_note": no_library},
+        {"name": "rerank_lists", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rerank_topk.cu",
+         "replaces": "src/repro/kernels/rerank_topk/rerank_topk.py:153",
+         "launches": paths["rerank_lists"],
+         "max_abs_err": k2_lists["max_abs_err"], "ms": k2_lists["ms"],
+         "plain_ms": k2_lists["plain_ms"], "bound_ms": k2_lists["bound_ms"],
+         "bound_by": k2_lists["bound_by"], "library_ms": None,
+         "library_note": no_library},
         {"name": "hamming_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_topk.cu",
          "replaces": "src/repro/kernels/hamming/hamming.py:55",
-         "launches": ham_launches["hamming_topk"],
+         "launches": paths["hamming_topk"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
@@ -1479,7 +1879,7 @@ def main() -> int:
         {"name": "adc_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/adc_scan.cu",
          "replaces": "src/repro/kernels/adc_scan/adc_scan.py:96",
-         "launches": comp_launches["adc_scan"],
+         "launches": paths["adc_scan"],
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,

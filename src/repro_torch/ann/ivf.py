@@ -12,10 +12,13 @@ one window size serves every query-args group up to the cap.  ``scan`` /
 ``max_scan`` do the same for the per-list budget.
 
 Rerank: the probed window goes through the shared rerank
-(:func:`repro_torch.kernels.rerank_topk.rerank_topk`): the torch streaming
-fold by default, or with ``rerank_kernel=True`` the hand-written Hopper
-kernel ``kernels/csrc/rerank_topk.cu`` (its plain PyTorch version on the
-CPU).  ``streaming`` is an accepted no-op, as in the reference.
+(:func:`repro_torch.kernels.rerank_topk.rerank_topk`), the torch streaming
+fold, by default.  With ``rerank_kernel=True`` the fp32 search takes the
+hand-written Hopper kernel's list entry
+(:func:`repro_torch.kernels.rerank_topk.rerank_lists`): the same result
+on the same window, computed list by list from the probes without
+building it (on the CPU, the window through the kernel's plain version).
+``streaming`` is an accepted no-op, as in the reference.
 
 ``quantize=`` adds the compressed-domain stage: each inverted list keeps
 its members' codes (cluster-major, like the corpus), the probed window is
@@ -39,7 +42,8 @@ from repro_torch.ann.kmeans import kmeans
 from repro_torch.ann.topk import topk_smallest
 from repro_torch.core.interface import FunctionalANN
 from repro_torch.core.registry import register
-from repro_torch.kernels.rerank_topk import rerank_topk
+from repro_torch.kernels.rerank_topk import rerank_lists, rerank_topk
+from repro_torch.kernels.rerank_topk.lists import list_window
 
 
 def build(X: np.ndarray, *, metric: str = "euclidean",
@@ -122,26 +126,45 @@ def search(state: IndexState, Q, *, k: int, n_probes=1, scan=None,
         raise ValueError(
             "n_cand/max_cand are the compressed-domain rerank knobs; "
             "build with quantize= to use them")
+    if quant is None and state.static.get("rerank_kernel", False):
+        # the kernel's list entry: the window below, list by list
+        Q, probes = coarse_probes(state, Q, n_probes=n_probes,
+                                  max_probes=max_probes)
+        M, scan = _window_width(state, scan, max_scan)
+        return rerank_lists(
+            Q, state["X"], probes, k=k, metric=state.metric,
+            starts=state["starts"], sizes=state["sizes"], M=M,
+            row_ids=_row_ids(state, id_map), n_probes=n_probes, scan=scan,
+            xsq=state.arrays.get("xsq"), row_live=_by_row(state, live))
     Q, cand, valid = probe_window(state, Q, n_probes=n_probes, scan=scan,
                                   max_probes=max_probes, max_scan=max_scan)
     if quant is not None:
         return _rerank_quantized(state, Q, cand, valid, k=k, n_cand=n_cand,
                                  max_cand=max_cand)
-    dev = state.device
-    # tombstones: `live` is indexed by corpus row, the window by
-    # cluster-major position -- translate through the ids permutation
     if live is not None:
-        live = torch.as_tensor(live, device=dev).to(torch.bool)
-        valid = valid & live[state["ids"].long()][cand.long()]
-    rids = state["ids"] if id_map is None \
-        else torch.as_tensor(id_map, device=dev).to(torch.int32)[
-            state["ids"].long()]
-    # 3. exact distances on the candidate window
+        valid = valid & _by_row(state, live)[cand.long()]
+    # 3. exact distances on the candidate window: the streaming fold
     return rerank_topk(
         Q, state["X"], cand, k=k, metric=state.metric,
-        xsq=state.arrays.get("xsq"), row_ids=rids, valid=valid,
-        block=state.static.get("rerank_block"),
-        use_kernel=bool(state.static.get("rerank_kernel", False)))
+        xsq=state.arrays.get("xsq"), row_ids=_row_ids(state, id_map),
+        valid=valid, block=state.static.get("rerank_block"))
+
+
+def _by_row(state: IndexState, live):
+    """Tombstones: ``live`` is indexed by corpus row, the lists by
+    cluster-major position -- translate through the ids permutation."""
+    if live is None:
+        return None
+    live = torch.as_tensor(live, device=state.device).to(torch.bool)
+    return live[state["ids"].long()]
+
+
+def _row_ids(state: IndexState, id_map):
+    """The output id of each cluster-major row."""
+    if id_map is None:
+        return state["ids"]
+    return torch.as_tensor(id_map, device=state.device).to(torch.int32)[
+        state["ids"].long()]
 
 
 def _rerank_quantized(state: IndexState, Q, cand, valid, *, k: int,
@@ -184,44 +207,43 @@ def _rerank_quantized(state: IndexState, Q, cand, valid, *, k: int,
     return adc_d[:, :kk], ids[:, :kk]
 
 
+def coarse_probes(state: IndexState, Q, *, n_probes=1,
+                  max_probes: Optional[int] = None):
+    """Step 1 of the search, the coarse quantizer: (queries [b, d] on the
+    device, probes [b, P] int64), the P nearest centroids of each query
+    (stable: ties to the lower centroid).  P is ``n_probes`` or, under a
+    ``max_probes`` cap, the cap (probes past ``n_probes`` are masked by
+    the caller)."""
+    C = state.stat("n_clusters")
+    P = min(int(n_probes if max_probes is None else max_probes), C)
+    Q = prepare_queries(Q, state.metric, state.device)
+    cd = D.sq_l2_matrix(Q, state["centers"])             # [b, C]
+    _, probes = topk_smallest(cd, P)                     # [b, P]
+    return Q, probes.contiguous()
+
+
+def _window_width(state: IndexState, scan, max_scan):
+    """(M, scan): the window's rows per list, and the scan budget still to
+    mask (None where the width is the budget)."""
+    pad = state.stat("pad")
+    if max_scan is None:
+        return (pad if scan is None else max(1, min(int(scan), pad))), None
+    return max(1, min(int(max_scan), pad)), scan
+
+
 def probe_window(state: IndexState, Q, *, n_probes=1, scan=None,
                  max_probes: Optional[int] = None,
                  max_scan: Optional[int] = None):
     """Steps 1-2 of the search: (queries [b, d] on the device, candidate
-    rows [b, P*M] int32 in the cluster-major corpus, validity [b, P*M])."""
-    C = state.stat("n_clusters")
-    n = state.stat("n")
-    pad = state.stat("pad")
-    if max_probes is None:
-        P = min(int(n_probes), C)
-    else:
-        P = min(int(max_probes), C)
-    if max_scan is None:
-        M = pad if scan is None else max(1, min(int(scan), pad))
-        scan = None                     # window == budget: no mask needed
-    else:
-        M = max(1, min(int(max_scan), pad))
-    dev = state.device
-    Q = prepare_queries(Q, state.metric, dev)
-    b = Q.shape[0]
-    # 1. coarse quantizer: the P nearest centroids (stable: ties to the
-    #    lower centroid), probes past n_probes masked
-    cd = D.sq_l2_matrix(Q, state["centers"])             # [b, C]
-    _, probes = topk_smallest(cd, P)                     # [b, P]
-    probe_live = torch.arange(P, dtype=torch.int32, device=dev) < n_probes
-    # 2. padded window of each probed list, entries past the scan budget
-    #    masked the same way
-    starts = state["starts"][probes]                     # [b, P]
-    sizes = state["sizes"][probes]                       # [b, P]
-    offs = torch.arange(M, dtype=torch.int32, device=dev)
-    cand = starts[..., None] + offs[None, None, :]       # [b, P, M]
-    valid = offs[None, None, :] < sizes[..., None]
-    valid = valid & probe_live[None, :, None]
-    if scan is not None:
-        valid = valid & (offs[None, None, :] < torch.clamp_min(
-            torch.as_tensor(scan, device=dev), 1))
-    cand = torch.clamp_max(cand, n - 1).reshape(b, -1)
-    valid = valid.reshape(b, -1)                         # [b, P*M]
+    rows [b, P*M] int32 in the cluster-major corpus, validity [b, P*M]).
+    Step 2, the padded window of each probed list with entries past the
+    list, past ``n_probes`` and past the scan budget masked, is
+    ``rerank_topk.lists.list_window``."""
+    Q, probes = coarse_probes(state, Q, n_probes=n_probes,
+                              max_probes=max_probes)
+    M, scan = _window_width(state, scan, max_scan)
+    cand, valid = list_window(probes, state["starts"], state["sizes"], M,
+                              state.stat("n"), n_probes=n_probes, scan=scan)
     return Q, cand, valid
 
 

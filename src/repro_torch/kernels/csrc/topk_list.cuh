@@ -61,6 +61,53 @@ __device__ __forceinline__ void list_insert_unique(float* ld, int* li, int k,
   if (beats(d, id, ld[k - 1], li[k - 1])) list_insert(ld, li, k, d, id);
 }
 
+// One warp's unique-by-id insert into a sorted list of k <= 256 pairs, with
+// list_insert_unique's result: lane l reads slots l, l + 32, ...; a ballot
+// finds the id's slot (k if absent) and another counts the entries before
+// (d, id).  The entries from there up to the id's old slot (or to the last
+// one, which falls off) move up one slot, the top 32 first, so that each is
+// read before the lane below overwrites it.  Every lane must call it with
+// the same (d, id).
+__device__ __forceinline__ void warp_insert_unique(float* ld, int* li, int k,
+                                                   float d, int id,
+                                                   int lane) {
+  if (!(id >= 0 && d < INFINITY)) return;
+  int old = k, pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int s = base + lane;
+    const bool in = s < k;
+    const float sd = in ? ld[s] : INFINITY;
+    const int si = in ? li[s] : -1;
+    const unsigned same = __ballot_sync(0xffffffffu, in && si == id);
+    if (same && old == k) old = base + __ffs(same) - 1;
+    pos += __popc(__ballot_sync(0xffffffffu, in && pair_less(sd, si, d, id)));
+  }
+  if (old < k ? !(d < ld[old]) : !beats(d, id, ld[k - 1], li[k - 1])) return;
+  const int end = old < k ? old : k - 1;
+  for (int base = (end / 32) * 32; base >= 0; base -= 32) {
+    if (base + 31 <= pos) break;
+    const int s = base + lane;
+    const bool move = s > pos && s <= end;
+    float dv = 0.0f;
+    int iv = 0;
+    if (move) {
+      dv = ld[s - 1];
+      iv = li[s - 1];
+    }
+    __syncwarp();
+    if (move) {
+      ld[s] = dv;
+      li[s] = iv;
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+    ld[pos] = d;
+    li[pos] = id;
+  }
+  __syncwarp();
+}
+
 // Most corpus ranges a query's scan may be split into (merge_splits).
 constexpr int MAX_SPLITS = 128;
 

@@ -16,6 +16,12 @@ paths with identical select semantics:
     kernel's window distances-out entry writes the [chunk, C] distances
     and a unique-by-id select follows (``distances_route``).
 
+``rerank_lists`` is the kernel's list entry (IVF's fp32 search): the same
+result as ``rerank_topk(use_kernel=True)`` on the window of the probed
+lists, computed list by list on CUDA tensors without that window
+(``lists.py``); on CPU tensors, and above ``kernels.MAX_K``, it builds the
+window and takes ``rerank_topk``'s kernel path.
+
 Both return what ``topk_unique`` over the materialized gather returns
 (``ref.rerank_topk_ref``): masked (-1) candidates never win, duplicate ids
 collapse to their best distance, rows with fewer than k distinct finite
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.bits import popcount32, words_to_tensor
+from repro_torch.kernels.rerank_topk import lists
 from repro_torch.kernels.rerank_topk.rerank_topk import (
     rerank_dist_kernel, rerank_dist_plain, rerank_topk_kernel,
     rerank_topk_plain)
@@ -130,6 +137,58 @@ def rerank_topk(Q, X, cand, *, k: int, metric: str, xsq=None, row_ids=None,
                                 bad[:, s:s + size], row_ids, metric)
 
     return chunked_topk(C, kk, blk, chunk, unique=True)
+
+
+def rerank_lists(Q, X, probes, *, k: int, metric: str, starts, sizes,
+                 M: int, row_ids, n_probes=None, scan=None, xsq=None,
+                 row_live=None):
+    """(dists [b, kk], ids [b, kk]), kk = min(k, P * M): the k best
+    DISTINCT ids of each query's window of its P probed lists, M rows each
+    (``lists.list_window``), in the kernel's arithmetic.
+
+    ``probes [b, P]``    the probed lists (``ann/ivf.py::coarse_probes``).
+    ``starts, sizes``    [n_lists] each list's first row in ``X`` and length.
+    ``row_ids``          [n] output id of each row of ``X``.
+    ``n_probes``         None (every slot), an int or a 0-d device tensor:
+                         probe slots past it are dead.
+    ``scan``             None, an int or a 0-d device tensor: a list's rows
+                         past max(scan, 1) are skipped.
+    ``row_live``         optional [n] bool: rows that may be returned.
+
+    Metrics euclidean and angular.  ``X`` fixes the device."""
+    if metric not in ("euclidean", "angular"):
+        raise ValueError(f"rerank_lists takes euclidean or angular, not "
+                         f"{metric!r}")
+    if metric == "euclidean" and xsq is None:
+        raise ValueError("euclidean rerank needs the cached xsq table "
+                         "(build-time sum(X**2, dim=1))")
+    dev = X.device
+    Q = _as_queries(Q, metric, dev)
+    probes = torch.as_tensor(probes, device=dev)
+    b, P = probes.shape
+    kk = min(int(k), P * int(M))
+    if b == 0 or kk == 0:
+        return (torch.full((b, kk), float("inf"), device=dev),
+                torch.full((b, kk), -1, dtype=torch.int32, device=dev))
+    if kk > kernels.MAX_K or not X.is_cuda:
+        cand, valid = lists.list_window(probes, starts, sizes, M,
+                                        X.shape[0], n_probes=n_probes,
+                                        scan=scan, row_live=row_live)
+        return rerank_topk(Q, X, cand, k=k, metric=metric, xsq=xsq,
+                           row_ids=row_ids, valid=valid, use_kernel=True)
+    mode = "l2sq" if metric == "euclidean" else "cos"
+    qsq = torch.sum(Q * Q, dim=1) if mode == "l2sq" \
+        else torch.zeros(b, dtype=torch.float32, device=dev)
+    live = None if row_live is None else \
+        torch.as_tensor(row_live, device=dev).to(torch.uint8).contiguous()
+    return lists.rerank_lists_kernel(
+        Q.contiguous(), qsq, X.contiguous(),
+        None if xsq is None else xsq.to(torch.float32).contiguous(),
+        probes.contiguous(), starts.to(torch.int32).contiguous(),
+        sizes.to(torch.int32).contiguous(),
+        torch.as_tensor(row_ids, device=dev).to(torch.int32).contiguous(),
+        M=int(M), mode=mode, k=int(k), n_probes=n_probes, scan=scan,
+        row_live=live)
 
 
 def distances_route(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,

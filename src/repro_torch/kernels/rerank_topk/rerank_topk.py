@@ -27,6 +27,14 @@ from repro_torch.bits import popcount32
 
 NEG_ONE = -1
 MODES = {"l2sq": 0, "cos": 1, "ham": 2}
+# Bound on a float output's error against the exact value of its
+# expression, relative to the weight of the cross term in it
+# (``err_vs_exact``).  A chain of fmaf over d words errs by at most
+# d * 2^-24 of that weight (7.6e-6 at d = 128), and in practice by a few
+# times sqrt(d) * 2^-24; operands rounded to TF32 (10-bit mantissas) or
+# one term of the sum dropped err by far more.  test_torch_rerank_lists.py
+# holds all three at d = 128; PERF.md gives the kernel's readings.
+EXACT_REL = 4e-6
 
 
 def merge_topk_unique_rounds(cand_d: torch.Tensor, cand_i: torch.Tensor,
@@ -46,12 +54,64 @@ def merge_topk_unique_rounds(cand_d: torch.Tensor, cand_i: torch.Tensor,
     return vals, torch.where(alive, ids, torch.full_like(ids, NEG_ONE))
 
 
+def _cross(x, Q):
+    """<q, x> of [b, c, d] rows against [b, d] queries, summed over d in
+    index order from +0.0, as the kernel's fmaf chain does (torch may round
+    each product before its add: a few units in the last place apart at
+    these widths, where another order, an einsum's, differs by more)."""
+    xt = x.permute(2, 0, 1).contiguous()                    # [d, b, c]
+    acc = torch.zeros(xt.shape[1:], dtype=torch.float32, device=x.device)
+    for j in range(xt.shape[0]):
+        acc = torch.addcmul(acc, xt[j], Q[:, j:j + 1])
+    return acc
+
+
+def err_vs_exact(out, cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
+                 k=None):
+    """(largest |dist - exact|, largest |dist - exact| / w) over the
+    filled slots of ``out``, a rerank result on this window (l2sq or
+    cos): exact is the kernel's expression on its fp32 operands with the
+    cross term in fp64, whatever the order of the sums, and w = c * sum_j
+    |q_j x_j| is the cross term's weight in it (c = 2 for l2sq, 1 for
+    cos).  Each output id must stand for one row of the window, as it
+    does without an id map."""
+    if mode not in ("l2sq", "cos"):
+        raise ValueError(f"err_vs_exact takes l2sq or cos, not {mode!r}")
+    d, i = out
+    fin = i >= 0
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    valid = (cand_ids >= 0) & torch.isfinite(pen)
+    vid = cand_ids[valid].long()
+    size = int(max(int(vid.max()), int(i.max()))) + 1
+    row_of = torch.full((size,), -1, dtype=torch.long, device=X.device)
+    pen_of = torch.zeros(size, dtype=torch.float64, device=X.device)
+    row_of[vid] = cand_rows[valid].long()
+    pen_of[vid] = pen[valid].double()
+    ids = i.clamp_min(0).long()
+    rows = row_of[ids]
+    if bool((rows[fin] < 0).any()):
+        raise ValueError("err_vs_exact: an output id is not in the window")
+    x = X[rows.clamp_min(0)].double()                       # [b, k, d]
+    q = Q.double()[:, None, :]
+    cross = (x * q).sum(-1)
+    weight = (x * q).abs().sum(-1)
+    if mode == "l2sq":
+        exact = (qsq.double()[:, None] - 2.0 * cross) + pen_of[ids]
+        weight = 2.0 * weight
+    else:
+        exact = (1.0 - cross) + pen_of[ids]
+    err = (d.double() - exact).abs()[fin]
+    rel = err / weight[fin].clamp_min(torch.finfo(torch.float64).tiny)
+    return float(err.max()), float(rel.max())
+
+
 def _block_distances(Q, X, qsq, rows, pen, mode: str):
     x = X[rows.long()]                                      # [b, c, d]
     if mode == "ham":
         xor = torch.bitwise_xor(x, Q[:, None, :])
         return popcount32(xor).sum(dim=-1).to(torch.float32) + pen
-    cross = torch.einsum("bcd,bd->bc", x, Q)
+    cross = _cross(x, Q)
     if mode == "l2sq":
         return (qsq[:, None] - 2.0 * cross) + pen
     return (1.0 - cross) + pen
@@ -60,8 +120,9 @@ def _block_distances(Q, X, qsq, rows, pen, mode: str):
 def rerank_topk_plain(cand_rows, Q, qsq, cand_ids, pen, X, *, mode: str,
                       k: int, bc: int = 1024, bq: int = 256):
     """Plain version of the kernel: queries in blocks of ``bq``, candidates
-    in blocks of ``bc`` gathered and scored, each folded into the running
-    state through ``merge_topk_unique_rounds``."""
+    in blocks of ``bc`` gathered and scored in the kernel's order of
+    summation, each folded into the running state through
+    ``merge_topk_unique_rounds``."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     b, C = cand_rows.shape

@@ -7,7 +7,11 @@ nvcc).  Run on the card with:
 Small shapes with ragged edges (nq, n, C not multiples of the tiles).
 Tolerances: float distances rtol=1e-5, atol=1e-4; hamming distances and
 every id on integer-valued inputs bitwise; the ADC scan bitwise (kernel
-and plain version add the subspaces in the same order).
+and plain version add the subspaces in the same order).  Kernel 2's two
+entries on N(0, 1) inputs: bit for bit with each other, and within
+``chip_smoke.py``'s gate of the plain version (distances within 2e-3, no
+id mismatch outside near ties); on N(0, 9) inputs at d = 128, within
+``rerank_topk.EXACT_REL`` of the exact value (the cross term in fp64).
 """
 
 import numpy as np
@@ -781,3 +785,219 @@ def test_every_k_up_to_max_k_launches_the_stream_kernel(cuda):
         wd, wi = stream_topk_plain(Q, X, qsq, xsq, mode="l2sq", k=k)
         assert torch.equal(gd, wd) and torch.equal(gi, wi), k
     assert distance_matrix_kernel.launches == routes
+
+
+# ----------------------------- kernel 2: the generic entry and the list entry
+def _list_layout(rng, n, d, n_lists, gauss, scale=1.0):
+    """A cluster-major corpus of n rows in n_lists lists (one empty), its
+    starts and sizes: N(0, scale^2) rows, or integer-valued ones."""
+    X = torch.as_tensor((scale * rng.standard_normal((n, d)))
+                        .astype(np.float32)) if gauss else _ints(rng, (n, d))
+    sizes = torch.as_tensor(rng.multinomial(n, np.ones(n_lists) / n_lists)
+                            .astype(np.int32))
+    sizes[1] += sizes[0]
+    sizes[0] = 0
+    starts = (torch.cumsum(sizes, 0) - sizes).to(torch.int32)
+    return X, starts, sizes
+
+
+def _gate(got, want_k1, k, tol=2e-3):
+    """chip_smoke.py's gate: distances within ``tol`` of the plain
+    version's, ids equal outside near ties (neighbouring plain distances,
+    the (k+1)-th included, within ``tol``)."""
+    gd, gi = got
+    wd, wi = want_k1[0][:, :k + 1], want_k1[1][:, :k + 1]
+    fin = torch.isfinite(wd[:, :k])
+    assert torch.equal(fin, torch.isfinite(gd))
+    assert float((gd - wd[:, :k]).abs()[fin].max()) <= tol
+    bad = gi != wi[:, :k]
+    gap = (wd[:, 1:] - wd[:, :-1]).abs() <= tol
+    near = torch.zeros_like(bad)
+    near[:, 1:] |= gap[:, :k - 1]
+    near |= gap[:, :k]
+    assert int((bad & ~near).sum()) == 0
+
+
+def _both_entries(cuda, mode, k, seed, *, b=301, n=6007, d=24, n_lists=37,
+                  P=7, n_probes=5, scan=None, live=True, id_map=True,
+                  scale=1.0):
+    from repro_torch.kernels.rerank_topk import lists
+    from repro_torch.kernels.rerank_topk.ops import kernel_operands
+
+    rng = np.random.default_rng(seed)
+    X, starts, sizes = _list_layout(rng, n, d, n_lists, gauss=True,
+                                    scale=scale)
+    Q = torch.as_tensor((scale * rng.standard_normal((b, d)))
+                        .astype(np.float32))
+    if mode == "cos":
+        X = X / X.norm(dim=1, keepdim=True)
+        Q = Q / Q.norm(dim=1, keepdim=True)
+    # half the queries probe list 3 first: a list of many queries
+    probes = torch.as_tensor(np.stack([
+        rng.permutation(n_lists)[:P] if q % 2 else
+        np.concatenate([[3], rng.permutation(np.delete(
+            np.arange(n_lists), 3))[:P - 1]]) for q in range(b)]))
+    row_ids = torch.as_tensor(rng.permutation(n).astype(np.int32))
+    if id_map:
+        row_ids = row_ids // 2               # every id twice
+    row_live = torch.as_tensor(rng.random(n) < 0.9) if live else None
+    X, Q, probes, starts, sizes, row_ids = (
+        t.to(cuda) for t in (X, Q, probes, starts, sizes, row_ids))
+    if row_live is not None:
+        row_live = row_live.to(cuda)
+    xsq = (X * X).sum(1)
+    qsq = (Q * Q).sum(1) if mode == "l2sq" else torch.zeros(b, device=cuda)
+    M = int(sizes.max())
+    n_p = torch.tensor(n_probes, dtype=torch.int32, device=cuda)
+    got = lists.rerank_lists_kernel(
+        Q, qsq, X, xsq if mode == "l2sq" else None, probes, starts, sizes,
+        row_ids, M=M, mode=mode, k=k, n_probes=n_p, scan=scan,
+        row_live=None if row_live is None else row_live.to(torch.uint8))
+    cand, valid = lists.list_window(probes, starts, sizes, M, n,
+                                    n_probes=n_p, scan=scan,
+                                    row_live=row_live)
+    metric = "euclidean" if mode == "l2sq" else "angular"
+    ops = kernel_operands(Q, X, qsq[:, None] if mode == "l2sq" else None,
+                          xsq, cand, ~valid, row_ids, metric, k)
+    return got, ops
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "cos"])
+@pytest.mark.parametrize("k", [1, 10, 100, 256])
+def test_list_entry_equals_generic_entry_bitwise(cuda, mode, k):
+    """The two entries compute <q, x> the same way, so on the window of
+    the probed lists they agree bit for bit; both meet the plain gate."""
+    from repro_torch.kernels.rerank_topk import (rerank_lists_kernel,
+                                                 rerank_topk_kernel,
+                                                 rerank_topk_plain)
+
+    before = rerank_lists_kernel.launches
+    got, ops = _both_entries(cuda, mode, k, seed=k)
+    assert rerank_lists_kernel.launches == before + 1
+    generic = rerank_topk_kernel(**ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], generic[0]) and torch.equal(got[1], generic[1])
+    want = rerank_topk_plain(**dict(ops, k=k + 1))
+    _gate(got, want, k)
+    _gate(generic, want, k)
+    for row in got[1].tolist():
+        kept = [i for i in row if i >= 0]
+        assert len(set(kept)) == len(kept)
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "cos"])
+@pytest.mark.parametrize("b,n_probes,scan", [(1, 7, None), (2, 3, 40),
+                                             (777, 0, None), (400, 9, 1)])
+def test_list_entry_edges_equal_generic_entry(cuda, mode, b, n_probes, scan):
+    """One query, no live probe slot, n_probes past P, a scan budget of
+    one row; no live mask or id map."""
+    from repro_torch.kernels.rerank_topk import rerank_topk_kernel
+
+    got, ops = _both_entries(cuda, mode, 10, seed=b, b=b, n_probes=n_probes,
+                             scan=None if scan is None else
+                             torch.tensor(scan, device=cuda), live=False,
+                             id_map=False)
+    generic = rerank_topk_kernel(**ops)
+    assert torch.equal(got[0], generic[0]) and torch.equal(got[1], generic[1])
+    if n_probes == 0:
+        assert bool((got[1] == -1).all())
+
+
+@pytest.mark.parametrize("mode", ["l2sq", "cos"])
+@pytest.mark.parametrize("k", [10, 256])
+def test_both_entries_within_the_exact_bound(cuda, mode, k):
+    """At d = 128 on N(0, 9) rows (squared norms near 1,150), each
+    entry's distances lie within EXACT_REL of the exact value, the cross
+    term summed in fp64, relative to that term's weight."""
+    from repro_torch.kernels.rerank_topk import (EXACT_REL, err_vs_exact,
+                                                 rerank_topk_kernel)
+
+    got, ops = _both_entries(cuda, mode, k, seed=128 + k, d=128, scale=3.0,
+                             id_map=False)
+    generic = rerank_topk_kernel(**ops)
+    for out in (got, generic):
+        assert bool((out[1][:, :k] >= 0).any())
+        err, rel = err_vs_exact(out, **ops)
+        assert rel <= EXACT_REL, (err, rel)
+
+
+def test_list_entry_plan_matches_the_kernel(cuda):
+    from repro_torch.kernels.rerank_topk.lists import (_lib, blocks_per_sm,
+                                                       smem_bytes)
+
+    lib = _lib()
+    for kp in range(1, 257):
+        assert lib.rerank_lists_smem_bytes(kp) == smem_bytes(kp)
+    assert lib.rerank_lists_smem_bytes(257) == -1
+    assert blocks_per_sm(10, True, "l2sq") >= 2
+    assert blocks_per_sm(256, True, "l2sq") >= 1
+
+
+def test_ivf_search_takes_the_list_entry(cuda):
+    from repro_torch.ann import ivf
+    from repro_torch.kernels.rerank_topk import (rerank_lists_kernel,
+                                                 rerank_topk_kernel)
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((4000, 32)).astype(np.float32)
+    st = ivf.build(X, n_clusters=40, rerank_kernel=True)
+    lists_before = rerank_lists_kernel.launches
+    topk_before = rerank_topk_kernel.launches
+    d, i = ivf.search(st, X[:50], k=5, n_probes=torch.tensor(3),
+                      max_probes=8)
+    assert rerank_lists_kernel.launches == lists_before + 1
+    assert rerank_topk_kernel.launches == topk_before
+    assert (i[:, 0].cpu().numpy() == np.arange(50)).all()
+    cpu = ivf.search(ivf.IndexState(st.algo, st.metric,
+                                    {k: v.cpu() for k, v in st.arrays.items()},
+                                    st.static),
+                     X[:50], k=5, n_probes=3, max_probes=8)
+    torch.testing.assert_close(d.cpu(), cpu[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric,d", [("euclidean", 18), ("euclidean", 100),
+                                      ("angular", 128), ("angular", 18),
+                                      ("hamming", 4), ("hamming", 8),
+                                      ("hamming", 3), ("euclidean", 300)])
+@pytest.mark.parametrize("k", [1, 10, 256])
+def test_generic_entry_shapes_match_plain(cuda, metric, d, k):
+    """Repeated ids, C not a multiple of 32, rows of d words (16-byte and
+    4-byte staging, chunks of d past 128 words), and an all-masked query
+    row; bit for bit on integer-valued inputs."""
+    from repro_torch.bits import words_to_tensor
+    from repro_torch.kernels.rerank_topk import (rerank_dist_kernel,
+                                                 rerank_dist_plain,
+                                                 rerank_topk_kernel,
+                                                 rerank_topk_plain)
+    from repro_torch.kernels.rerank_topk.ops import kernel_operands
+
+    rng = np.random.default_rng(d + k)
+    b, C, n = 45, 1001, 700
+    if metric == "hamming":
+        X = words_to_tensor(rng.integers(0, 2**32, (n, d), dtype=np.uint64)
+                            .astype(np.uint32), cuda)
+        Q = X[torch.as_tensor(rng.integers(0, n, b)).to(cuda)] ^ 3
+        qsq = xsq = None
+    else:
+        X, Q = _ints(rng, (n, d)).to(cuda), _ints(rng, (b, d)).to(cuda)
+        qsq = torch.sum(Q * Q, dim=1, keepdim=True) \
+            if metric == "euclidean" else None
+        xsq = torch.sum(X * X, dim=1) if metric == "euclidean" else None
+    cand = torch.as_tensor(rng.integers(0, n, (b, C)).astype(np.int32))
+    cand[:, 500:600] = cand[:, :100]               # the same rows again
+    bad = torch.as_tensor(rng.random((b, C)) < 0.5)
+    bad[7] = True                                  # an all-masked row
+    bad[:, 40:300] = True                          # whole groups masked
+    cand, bad = cand.to(cuda), bad.to(cuda)
+    row_ids = torch.as_tensor((rng.permutation(n) // 3).astype(np.int32)) \
+        .to(cuda)                                  # ids repeat
+    ops = kernel_operands(Q, X, qsq, xsq, cand, bad, row_ids, metric, k)
+    before = rerank_topk_kernel.launches
+    gd, gi = rerank_topk_kernel(**ops)
+    torch.cuda.synchronize()
+    assert rerank_topk_kernel.launches == before + 1
+    wd, wi = rerank_topk_plain(**ops)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+    assert bool((gi[7] == -1).all())
+    ops.pop("k")
+    assert torch.equal(rerank_dist_kernel(**ops), rerank_dist_plain(**ops))
