@@ -4,13 +4,16 @@
     python3 chip_smoke.py [--before DIR]
 
 ``--before DIR`` names the ``src/repro_torch/kernels/csrc`` of a checkout
-of the parent commit: its kernels 1, 2 and 5 are built beside the tree's
-and timed on the same inputs in the same run (parent, tree, tree, parent),
-the BruteForce and IVF traces are taken on both, and IVF's recall, search
-time and grid sweep are measured on both (the parent's IVF: the window of
-the probed lists through its kernel 2), on the main and angular sets;
-kernel 2's parent is also timed on each consumer's window, and each
-consumer's search with it in the new kernel's place.
+of the parent commit: its kernels 1, 2, 4 and 5 are built beside the
+tree's and timed on the same inputs in the same run (parent, tree, tree,
+parent), the BruteForce and IVF traces are taken on both, and IVF's
+recall, search time and grid sweep are measured on both (the parent's
+IVF: the window of the probed lists through its kernel 2), on the main
+and angular sets; kernel 2's parent is also timed on each consumer's
+window, and each consumer's search with it in the new kernel's place;
+kernel 4's parent must give the new kernel's answer bit for bit at every
+shape, and the PQ and int8 BruteForce searches run with each kernel 4 in
+its place (ids equal, recall equal, timed in turns).
 Without it the run is the tree's alone.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
@@ -30,8 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     IVF-PQ on the main set, HyperplaneLSH and RPForest on the angular set,
     BitsamplingAnnoy and MIH on the Hamming set), ``hamming_topk`` (10^4 x
     10^6 codes of 256 bits, k = 10 and 100, plus a ragged, masked case) and
-    ``adc_scan``
-    (n = 10^6; PQ m = 16 and int8 m = 128 tables; C = 10, 256, 1024);
+    ``adc_scan`` (n = 10^6; PQ m = 16 and int8 m = 128 tables; C = 10,
+    256, 1024 at b = 4,096, the grid shape b = 10^4, C = 1,000 and int8 at
+    b = 10^4, C = 200; bit for bit, each with its plan, the share of the
+    lookup bound and ptxas's registers, no variant spilling);
     ``distance_matrix`` (1,024 x 10^6 x 128, every mode; the k = 256 route
     through it equals ``stream_topk`` bit for bit; k = 257 and 1,000),
     the other distances-out routes (``hamming_topk`` at k = 1,000,
@@ -72,11 +77,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         (both rerank_kernel) over their probe knobs.
     Before the paths, one ``stream_topk_batched`` call at the main path's
     shape (the 10^4 queries of the main set against its 10^6 rows, k = 10,
-    one query block as the runner sends it) and one ``ivf.search`` (n_probes
-    5 under cap 10) under ``torch.profiler``: the device time of each
-    kernel and the idle share of the call's window; IVF's recall, search
-    time and sweep (``ivf_compare``) and its stages (coarse quantizer, pair
-    build, list kernel, merge).
+    one query block as the runner sends it), one ``ivf.search`` (n_probes
+    5 under cap 10), one PQ BruteForce search (n_cand 1000) and one IVF-PQ
+    search (n_probes 10, n_cand 1000) under ``torch.profiler``: the device
+    time of each kernel and the idle share of the call's window; IVF's
+    recall, search time and sweep (``ivf_compare``) and its stages (coarse
+    quantizer, pair build, list kernel, merge); the PQ and int8
+    BruteForce searches' recall and time (``adc_searches``).
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -217,13 +224,15 @@ def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
 
 
 class Before:
-    """The parent commit's kernels 1, 2 and 5, built from ``--before DIR``
-    and launched with the parent's wrappers' arguments, for same-call
+    """The parent commit's kernels 1, 2, 4 and 5, built from ``--before
+    DIR`` and launched with the parent's wrappers' arguments, for same-call
     comparisons.  The parent's kernel 1 takes a launch plan (query rows,
     splits, rows per split): it is given this tree's ``kernel_plan``;
-    kernel 2's parent takes the window operands of the generic entry."""
+    kernel 2's parent takes the window operands of the generic entry;
+    kernel 4's parent takes the plan of the parent's wrapper
+    (``adc_plan``)."""
 
-    SOURCES = ("stream_topk", "distance_matrix", "rerank_topk")
+    SOURCES = ("stream_topk", "distance_matrix", "rerank_topk", "adc_scan")
 
     def __init__(self, src_dir: str):
         self.src = Path(src_dir).resolve()
@@ -265,6 +274,9 @@ class Before:
         fn.restype = i
         fn = self.libs["rerank_topk"].rerank_topk_launch
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
+        fn.restype = i
+        fn = self.libs["adc_scan"].adc_scan_launch
+        fn.argtypes = [p] * 6 + [i] * 11 + [p]
         fn.restype = i
 
     def stream_topk(self, Q, X, qsq, xsq, *, mode: str, k: int):
@@ -321,6 +333,56 @@ class Before:
             out_d.data_ptr(), out_i.data_ptr(), b, C, X.shape[1], k,
             MODES[mode], torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"before rerank_topk: CUDA error {status}")
+        return out_d, out_i
+
+    @staticmethod
+    def adc_plan(b, n, m, K, C, sms):
+        """The parent wrapper's plan: G per-query tables (as many as two
+        blocks per SM allow, at most 8), lists of P = pow2(C), buffers of
+        max(P, 512), the corpus split for two blocks per SM."""
+        target, tile = 113 * 1024, 256
+        P = 1
+        while P < C:
+            P <<= 1
+        BUF = max(P, 2 * tile)
+        state = 8 * (P + BUF) + 4
+        per = 4 * m * K + state
+        if per <= target:
+            G, lut_smem = target // per, True
+        elif per <= 232448:
+            G, lut_smem = 1, True
+        else:
+            G, lut_smem = max(1, target // state), False
+        G = max(1, min(G, 8, b))
+        smem = G * (per if lut_smem else state)
+        per_sm = 2 if smem <= target else 1
+        groups = -(-b // G)
+        splits = max(1, min(-(-2 * sms * per_sm // groups), 128,
+                            -(-n // (4 * tile))))
+        rows = -(-(-(-n // splits)) // tile) * tile
+        return dict(G=G, lut_smem=lut_smem, P=P, BUF=BUF,
+                    splits=-(-n // rows), rows=rows, smem=smem)
+
+    def adc_scan(self, codes, luts, *, k: int):
+        import torch
+
+        n, m = codes.shape
+        b, _, K = luts.shape
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        p = self.adc_plan(b, n, m, K, k, sms)
+        out_d = torch.empty((b, k), device="cuda")
+        out_i = torch.empty((b, k), dtype=torch.int32, device="cuda")
+        part_d, part_i = out_d, out_i
+        if p["splits"] > 1:
+            part_d = torch.empty((p["splits"], b, k), device="cuda")
+            part_i = torch.empty((p["splits"], b, k), dtype=torch.int32,
+                                 device="cuda")
+        status = self.libs["adc_scan"].adc_scan_launch(
+            codes.data_ptr(), luts.data_ptr(), part_d.data_ptr(),
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, n, m,
+            K, k, p["P"], p["BUF"], p["G"], int(p["lut_smem"]), p["splits"],
+            p["rows"], torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"before adc_scan: CUDA error {status}")
         return out_d, out_i
 
 
@@ -1018,27 +1080,85 @@ def phase_hamming_topk(torch, peaks, clock_hz):
     return main
 
 
-def phase_adc_scan(torch, peaks, clock_hz):
-    """Kernel 4 against its plain version over n = 10^6 codes: the
-    compressed path's grid shape (PQ m = 16, b = 10^4 queries, C = 1000)
-    first, then b = 4,096 (BruteForce's batch block) for PQ (m = 16: 16 KB
-    tables) and int8 (m = 128: 128 KB tables, one query per block) at
-    C = 10, 256, 1024.  Tables are random floats, codes random bytes."""
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by mangled name."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"(?:Compiling entry function '|Function "
+                        r"properties for )([\w$]+)", line)
+        if hit:
+            name = hit.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", line)
+        if hit:
+            out[name]["spill_bytes"] = int(hit.group(1)) + int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[name]["registers"] = int(hit.group(1))
+    return out
+
+
+def adc_variants_ptxas() -> dict:
+    """ptxas's report of each compiled scan variant of kernel 4, by
+    (G, R, threads, tables in shared memory)."""
+    import re
+
+    from repro_torch import kernels
+
+    out = {}
+    for name, rep in ptxas_report(kernels.BUILD_INFO.get("adc_scan",
+                                                         "")).items():
+        hit = re.search(r"adc_scan_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d+)E",
+                        name)
+        if hit:
+            out[(int(hit.group(1)), int(hit.group(2)), int(hit.group(4)),
+                 hit.group(3) == "1")] = rep
+    return out
+
+
+def phase_adc_scan(torch, peaks, clock_hz, before):
+    """Kernel 4 against its plain version over n = 10^6 codes, bit for bit:
+    the compressed path's grid shape (PQ m = 16, b = 10^4 queries,
+    C = 1000) first, then b = 4,096 (BruteForce's batch block) for PQ
+    (m = 16: 16 KB tables) and int8 (m = 128: 128 KB tables, one query per
+    block) at C = 10, 256, 1024, and int8 at the compressed path's b = 10^4,
+    C = 200.  Tables are random floats, codes random bytes.  Each shape
+    logs its plan (G, R, buffer, splits, shared bytes, resident blocks per
+    SM by the occupancy calculator and by the plan's model), the share of
+    the lookup bound and ptxas's registers and spills for the variant; no
+    variant may spill.  With ``before``, the parent's kernel must give the
+    same answer bit for bit and is timed in turns with the new one."""
     from repro_torch.kernels.adc_scan import adc_scan_kernel, adc_scan_plain
-    from repro_torch.kernels.adc_scan.adc_scan import plan
+    from repro_torch.kernels.adc_scan.adc_scan import (VARIANTS, kernel_plan,
+                                                       model_blocks_per_sm)
 
     flops_peak, bytes_peak = peaks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     from repro_torch.benchmarks.common import LDS_WORDS_PER_CLOCK_SM
 
     lds_rate = LDS_WORDS_PER_CLOCK_SM * sms * clock_hz
+    variants = adc_variants_ptxas()
+    log(json.dumps({"phase": "adc_ptxas", "variants": {
+        f"G={g},R={r},threads={nt},smem={int(sm)}": rep
+        for (g, r, nt, sm), rep in sorted(variants.items())}}))
+    check(set(variants) == set(VARIANTS) and all(
+        rep.get("spill_bytes", 1) == 0 for rep in variants.values()),
+        f"adc_scan: ptxas reports spills or misses a variant: {variants}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     n, K = 1_000_000, 256
     main = None
     for codec, m, b, C in [("pq", 16, 10_000, 1000), ("pq", 16, 4096, 10),
                            ("pq", 16, 4096, 256), ("pq", 16, 4096, 1024),
                            ("int8", 128, 4096, 10), ("int8", 128, 4096, 256),
-                           ("int8", 128, 4096, 1024)]:
+                           ("int8", 128, 4096, 1024),
+                           ("int8", 128, 10_000, 200)]:
         codes = torch.randint(0, K, (n, m), generator=gen, device="cuda",
                               dtype=torch.uint8)
         luts = torch.rand((b, m, K), generator=gen, device="cuda")
@@ -1048,33 +1168,177 @@ def phase_adc_scan(torch, peaks, clock_hz):
         want = adc_scan_plain(codes, luts, k=C + 1)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        tol = 1e-5
-        max_err, outside, at_ties = compare(torch, got, want, C, tol)
-        ms = cuda_ms(torch, lambda: adc_scan_kernel(codes, luts, k=C),
-                     reps=3)
+        max_err, outside, at_ties = compare(torch, got, want, C, 0.0,
+                                            exact=True)
+
+        def after():
+            return adc_scan_kernel(codes, luts, k=C)
+
+        pair = None
+        if before is None:
+            ms = cuda_ms(torch, after, reps=3)
+        else:
+            old = before.adc_scan(codes, luts, k=C)
+            check(bool(torch.equal(old[0], got[0])
+                       and torch.equal(old[1], got[1])),
+                  f"adc_scan {codec} b={b} C={C}: not bit for bit with the "
+                  f"parent's kernel")
+            pair = same_call(torch, lambda: before.adc_scan(codes, luts, k=C),
+                             after, reps=3)
+            pair["before_equals_after_bitwise"] = True
+            pair["before_plan"] = before.adc_plan(b, n, m, K, C, sms)
+            ms = sum(pair["after"]) / 2
+            del old
         adds = float(b) * n * m
         nbytes = float(n) * m + 4.0 * b * m * K + 8.0 * b * C
-        p = plan(b, n, m, K, C, sms)
+        p = kernel_plan(codes, luts, C)
+        lookup_bound_ms = adds / lds_rate * 1e3
         rec = {"kernel": "adc_scan", "codec": codec, "m": m, "K": K, "b": b,
-               "n": n, "C": C, "queries_per_block": p["G"],
-               "tables_in_shared_memory": p["lut_smem"],
-               "splits": p["splits"], "max_abs_err": max_err, "tol": tol,
+               "n": n, "C": C, "plan": dict(
+                   p, model_blocks_per_sm=model_blocks_per_sm(
+                       p["G"], p["R"], p["threads"], p["lut_smem"], p["smem"])),
+               "ptxas": variants[(p["G"], p["R"], p["threads"],
+                                  p["lut_smem"])],
+               "max_abs_err": max_err, "tol": 0.0, "bitwise_equal": True,
                "id_mismatch_outside_near_ties": outside,
                "near_tie_swaps": at_ties, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(adds / flops_peak, nbytes / bytes_peak) * 1e3,
                "bound_by": "operations" if adds / flops_peak
                >= nbytes / bytes_peak else "bytes",
-               "lookup_bound_ms": adds / lds_rate * 1e3,
-               "glookups_per_s": adds / ms / 1e6}
+               "lookup_bound_ms": lookup_bound_ms,
+               "lookup_bound_share": lookup_bound_ms / ms,
+               "glookups_per_s": adds / ms / 1e6, "same_call": pair}
         log(json.dumps(rec))
-        check(max_err <= tol, f"adc_scan {codec} C={C}: error {max_err}")
-        check(outside == 0, f"adc_scan {codec} C={C}: {outside} id "
-              f"mismatches outside near ties")
         if main is None:
             main = rec
         del codes, luts, got, want
     torch.cuda.empty_cache()
     return main
+
+
+def phase_adc_searches(torch, ds, before):
+    """The compressed path's kernel-4 consumers on the main set, built as
+    ``config()`` builds them: BruteForce(PQ m=16) searched at n_cand 1000
+    and BruteForce(int8) at n_cand 200, 10^4 queries from the host.  Each
+    search's recall (the runner's measure) and, with ``before``, the same
+    search with the parent's kernel 4 in the new one's place: ids bit for
+    bit, recall equal, and the search timed in turns (host clock,
+    synchronized, best of 2: parent, new, new, parent).  Then two traces
+    under ``torch.profiler``: the PQ search (kernel 4's share of the
+    device time and the idle share of the call's window) and IVF-PQ's
+    search (1024 lists, PQ m=16) at n_probes 10, n_cand 1000, whose
+    window goes through the torch fold, kernel 2 and the host's gaps."""
+    from repro_torch.ann import bruteforce, ivf
+    from repro_torch.core.experiment import _distances_for
+    from repro_torch.core.metrics import recall_from_arrays
+    from repro_torch.kernels.adc_scan import ops as adc_ops
+
+    kept = adc_ops.adc_scan_kernel
+
+    def with_kernel(kernel, fn):
+        adc_ops.adc_scan_kernel = kernel
+        try:
+            return fn()
+        finally:
+            adc_ops.adc_scan_kernel = kept
+
+    def host_ms(fn, reps=2):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def recall_of(ids):
+        ids = ids.cpu().numpy()
+        dist = _distances_for(ds, ids, "cuda")
+        return float(np.mean(recall_from_arrays(dist, ds.distances, K,
+                                                neighbors=ids)))
+
+    nq = int(ds.test.shape[0])
+    out = {}
+    for label, quantize, n_cand in [("BruteForce(PQ m=16)", PQ16, 1000),
+                                    ("BruteForce(int8)", {"int8": {}}, 200)]:
+        st = bruteforce.build(ds.train, metric="euclidean",
+                              quantize=quantize, adc_kernel=True,
+                              device="cuda")
+
+        def search():
+            return bruteforce.search(st, ds.test, k=K, n_cand=n_cand)
+
+        ids = search()[1]
+        rec = {"phase": "adc_searches", "search": label, "nq": nq,
+               "n_cand": n_cand, "recall": recall_of(ids)}
+        if before is not None:
+            def parent(codes, luts, *, k):
+                return before.adc_scan(codes, luts, k=k)
+
+            old = with_kernel(parent, search)[1]
+            check(bool(torch.equal(old, ids)),
+                  f"{label}: ids differ from the parent kernel's")
+            rec["recall_parent"] = recall_of(old)
+            check(rec["recall_parent"] == rec["recall"],
+                  f"{label}: recall moved from the parent's: {rec}")
+            searches = {"before": [host_ms(lambda: with_kernel(parent,
+                                                               search))],
+                        "after": [host_ms(search)]}
+            searches["after"].append(host_ms(search))
+            searches["before"].append(host_ms(lambda: with_kernel(parent,
+                                                                  search)))
+            rec["search_ms"] = searches
+            rec["search_qps"] = {key: nq / min(v) * 1e3
+                                 for key, v in searches.items()}
+        else:
+            rec["search_ms"] = host_ms(search)
+            rec["search_qps"] = nq / rec["search_ms"] * 1e3
+        if quantize is PQ16:
+            by_name, idle, window_ms = profile_call(torch, search)
+            adc_ms = sum(t for name, t in by_name.items()
+                         if "adc_scan_kernel" in name)
+            rec["trace"] = {"window_ms": window_ms, "idle_share": idle,
+                            "kernel4_ms": adc_ms,
+                            "kernel4_share": adc_ms / window_ms,
+                            "device_total_ms": sum(by_name.values()),
+                            "device_ms": top_device_ms(by_name)}
+        log(json.dumps(rec))
+        out[label] = rec
+        del st
+        torch.cuda.empty_cache()
+    st = ivf.build(ds.train, metric="euclidean", n_clusters=1024, n_iters=10,
+                   seed=0, rerank_kernel=True, quantize=PQ16, device="cuda")
+
+    def ivf_pq():
+        return ivf.search(st, ds.test, k=K, n_probes=10, n_cand=1000)
+
+    recall = recall_of(ivf_pq()[1])
+    search_ms = host_ms(ivf_pq)
+    by_name, idle, window_ms, launches = profile_call(torch, ivf_pq,
+                                                      count=True)
+    rec = {"phase": "adc_searches", "search": "IVF-PQ(1024 lists, PQ m=16)",
+           "n_probes": 10, "n_cand": 1000, "nq": nq, "recall": recall,
+           "search_ms": search_ms, "search_qps": nq / search_ms * 1e3,
+           "trace": {"window_ms": window_ms, "idle_share": idle,
+                     "device_launches": launches,
+                     "device_total_ms": sum(by_name.values()),
+                     "device_ms": top_device_ms(by_name)}}
+    log(json.dumps(rec))
+    out["IVF-PQ"] = rec
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def top_device_ms(by_name, top: int = 25) -> dict:
+    """The ``top`` largest device times of a trace by name cut to 120
+    characters, each the sum over the full names that share those
+    characters (kernel instances of one template often do)."""
+    cut = {}
+    for name, ms in by_name.items():
+        cut[name[:120]] = cut.get(name[:120], 0.0) + ms
+    return dict(sorted(cut.items(), key=lambda x: -x[1])[:top])
 
 
 def within(torch, got, want, rtol: float, atol: float):
@@ -1322,15 +1586,17 @@ def phase_embedding_bag(torch, peaks):
     return rec
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, count: bool = False):
     """One call of ``fn`` under ``torch.profiler``, after one call under
     it that is not read (the profiler's own first-launch cost): the device
     time of each kernel and copy it ran (ms, by name), the share of the
     call's window (from the call to the end of
     ``torch.cuda.synchronize()``) in which the device ran nothing, and the
-    window (ms).  Read from the profiler's raw events, which hold the
-    device work of torch's own ops as well as that of the port's kernels.
-    Fails if the trace holds no device activity in the window."""
+    window (ms); with ``count``, also the number of device kernels and
+    copies in the window.  Read from the profiler's raw events, which hold
+    the device work of torch's own ops as well as that of the port's
+    kernels.  Fails if the trace holds no device activity in the
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1360,7 +1626,8 @@ def profile_call(torch, fn):
         if t1 > t0:
             busy += t1 - t0
             reach = t1
-    return by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e6
+    out = (by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e6)
+    return out + (len(spans),) if count else out
 
 
 def decode_case(torch, peaks, q, k, v, lengths, label):
@@ -1765,7 +2032,7 @@ def main() -> int:
     # 2. kernels against their plain versions
     k1 = phase_stream_topk(torch, peaks, before)
     k3 = phase_hamming_topk(torch, peaks, clock_hz)
-    k4 = phase_adc_scan(torch, peaks, clock_hz)
+    k4 = phase_adc_scan(torch, peaks, clock_hz, before)
     k5 = phase_distance_matrix(torch, peaks, before)
     k6 = phase_embedding_bag(torch, peaks)
     k7 = phase_decode_attention(torch, peaks)
@@ -1780,6 +2047,7 @@ def main() -> int:
                       rerank_kernel=True, device="cuda")
     k2, k2_lists = phase_rerank_topk(torch, peaks, state, ds.test, before)
     phase_rerank_consumers(torch, peaks, ds, before)
+    phase_adc_searches(torch, ds, before)
     phase_ivf_trace(torch, ds, state, before)
     phase_ivf_compare(torch, MAIN, ds, state, before)
     phase_breakdown(torch, state, ds.test)

@@ -98,9 +98,15 @@ def build_all() -> Path:
     """Compile every ``csrc/*.cu`` that is not built yet, in parallel.
 
     Records each source's ``ptxas`` report (registers, spills) in
-    :data:`BUILD_INFO`; raises with the compiler's output on failure."""
+    :data:`BUILD_INFO`, and beside its library, from where a later process
+    that finds the library built reads it; raises with the compiler's
+    output on failure."""
     out = _build_dir()
     todo = [s for s in _sources() if not (out / f"lib{s.stem}.so").exists()]
+    for src in _sources():
+        log = out / f"lib{src.stem}.ptxas.txt"
+        if src not in todo and src.stem not in BUILD_INFO and log.exists():
+            BUILD_INFO[src.stem] = log.read_text()
     if not todo:
         return out
     out.mkdir(parents=True, exist_ok=True)
@@ -118,6 +124,7 @@ def build_all() -> Path:
         if proc.returncode != 0:
             errors.append(f"{src.name} (exit {proc.returncode}):\n{log}")
             continue
+        (out / f"lib{src.stem}.ptxas.txt").write_text(log)
         os.replace(tmp, out / f"lib{src.stem}.so")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

@@ -116,7 +116,7 @@ def test_hamming_topk_kernel_matches_plain(cuda, k, w, n, n_valid):
     assert (gi < n_valid).all()
 
 
-@pytest.mark.parametrize("C", [1, 10, 256, 1024])
+@pytest.mark.parametrize("C", [1, 10, 256, 1000, 1024])
 @pytest.mark.parametrize("b,n,m,K", [(37, 3001, 16, 256), (5, 2000, 8, 64),
                                      (9, 1500, 128, 256), (3, 700, 960, 256)])
 def test_adc_scan_kernel_matches_plain(cuda, C, b, n, m, K):
@@ -140,6 +140,85 @@ def test_adc_scan_kernel_matches_plain(cuda, C, b, n, m, K):
     gd, gi = adc_scan_kernel(codes, noisy, k=k)
     wd, wi = adc_scan_plain(codes, noisy, k=k)
     assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+def _adc_variants(cuda, codes, luts, C, pins):
+    """The kernel under each pinned plan against the plain version, bit for
+    bit, on the tables and on the tables plus uniform noise."""
+    from repro_torch.kernels.adc_scan import adc_scan_kernel, adc_scan_plain
+    from repro_torch.kernels.adc_scan.adc_scan import blocks_per_sm, plan
+
+    n, m = codes.shape
+    b, _, K = luts.shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for tables in (luts, luts + torch.rand(luts.shape, device=cuda)):
+        wd, wi = adc_scan_plain(codes, tables, k=C)
+        for pin in pins:
+            p = plan(b, n, m, K, C, sms, occupancy=blocks_per_sm, **pin)
+            gd, gi = adc_scan_kernel(codes, tables, k=C, plan=p)
+            torch.cuda.synchronize()
+            assert torch.equal(gd, wd) and torch.equal(gi, wi), p
+
+
+@pytest.mark.parametrize("C", [1, 10, 256, 1000, 1024])
+@pytest.mark.parametrize("G,R,threads", [(4, 1, 256), (1, 1, 256)])
+def test_adc_scan_variants_match_plain(cuda, G, R, threads, C):
+    """Every compiled variant of 256 threads with small tables in shared
+    memory (G queries a block, their tables interleaved) bit for bit with
+    the plain version: 37 queries (a tail group at G = 4), PQ m = 16 over
+    5,001 rows in one range and in three; small-integer tables (many exact
+    ties), then noisy ones."""
+    rng = np.random.default_rng(10 * G + R + C + threads)
+    codes = torch.as_tensor(rng.integers(0, 256, (5001, 16)).astype(
+        np.uint8)).to(cuda)
+    luts = torch.as_tensor(rng.integers(0, 7, (37, 16, 256)).astype(
+        np.float32)).to(cuda)
+    _adc_variants(cuda, codes, luts, C, [
+        dict(G=G, R=R, threads=threads, splits=1),
+        dict(G=G, R=R, threads=threads, splits=3)])
+
+
+@pytest.mark.parametrize("m,R,threads", [(128, 1, 256), (128, 2, 1024),
+                                         (960, 1, 256)])
+def test_adc_scan_one_query_variants_match_plain(cuda, m, R, threads):
+    """One query a block: the int8 table at d = 128 (128 KB in shared
+    memory, 256 and 1,024 threads) and at d = 960 (through the caches),
+    C = 10 and 1000, in one range and in the plan's."""
+    rng = np.random.default_rng(m + R + threads)
+    codes = torch.as_tensor(rng.integers(0, 256, (2500, m)).astype(
+        np.uint8)).to(cuda)
+    luts = torch.as_tensor(rng.integers(0, 7, (5, m, 256)).astype(
+        np.float32)).to(cuda)
+    for C in (10, 1000):
+        _adc_variants(cuda, codes, luts, C, [
+            dict(G=1, R=R, threads=threads, splits=1),
+            dict(G=1, R=R, threads=threads)])
+
+
+def test_adc_scan_kernel_refuses_a_plan_for_other_operands(cuda):
+    """A plan made for fewer rows would leave the last rows unscanned: the
+    wrapper refuses it before a launch."""
+    from repro_torch.kernels.adc_scan import adc_scan_kernel
+    from repro_torch.kernels.adc_scan.adc_scan import blocks_per_sm, plan
+
+    codes = torch.zeros((5000, 16), dtype=torch.uint8, device=cuda)
+    luts = torch.zeros((8, 16, 256), device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = plan(8, 1000, 16, 256, 10, sms, occupancy=blocks_per_sm)
+    with pytest.raises(ValueError, match="does not fit"):
+        adc_scan_kernel(codes, luts, k=10, plan=p)
+
+
+def test_adc_plan_occupancy_model_is_a_lower_bound(cuda):
+    """The plan's occupancy model (launch bounds and shared memory) never
+    promises more resident blocks than the occupancy calculator grants."""
+    from repro_torch.kernels.adc_scan.adc_scan import (
+        VARIANTS, blocks_per_sm, model_blocks_per_sm)
+
+    for G, R, threads, lut_smem in VARIANTS:
+        for smem in (5_124, 40_000, 81_000, 164_896, 229_408):
+            assert model_blocks_per_sm(G, R, threads, lut_smem, smem) <= \
+                blocks_per_sm(G, R, threads, lut_smem, smem)
 
 
 def test_adc_scan_kernel_refuses_c_above_limit(cuda):

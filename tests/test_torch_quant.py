@@ -42,7 +42,9 @@ from repro_torch.kernels.adc_scan import (MAX_C, adc_scan,  # noqa: E402
                                           adc_scan_kernel, adc_scan_plain,
                                           adc_scan_ref, adc_window_topk,
                                           pick_adc_block)
-from repro_torch.kernels.adc_scan.adc_scan import plan  # noqa: E402
+from repro_torch.kernels.adc_scan.adc_scan import (  # noqa: E402
+    MAX_SPLITS, VARIANTS, check_plan, interleaved_sums, lookup, plan,
+    smem_bytes, split_rule, tile_rows)
 
 RTOL, ATOL = 1e-5, 1e-4
 PQ = {"pq": {"m": 8, "bits": 6}}
@@ -220,18 +222,104 @@ def test_adc_kernel_route_above_its_limit_matches_reference(corpus):
 
 
 @pytest.mark.parametrize("b,n,m,K,C", [
-    (4096, 10**6, 16, 256, 10), (4096, 10**6, 16, 256, 1024),
-    (4096, 10**6, 128, 256, 1024), (1, 10**6, 16, 256, 100),
+    # chip_smoke.py's phase_adc_scan (PQ m = 16 and int8 m = 128 over 10^6
+    # codes) and the compressed paths' launches (PQ at the grid shape, the
+    # planted set's too; int8 at n_cand 200)
+    (10_000, 10**6, 16, 256, 1000), (4096, 10**6, 16, 256, 10),
+    (4096, 10**6, 16, 256, 256), (4096, 10**6, 16, 256, 1024),
+    (4096, 10**6, 128, 256, 10), (4096, 10**6, 128, 256, 256),
+    (4096, 10**6, 128, 256, 1024), (10_000, 10**6, 128, 256, 200),
+    # one query, a tail group, K = 16 (PQ bits 4), m = 12 (the byte path),
+    # C = 1, and an int8 table at d = 960 (through the caches)
+    (1, 10**6, 16, 256, 100), (37, 3001, 16, 256, 1000),
+    (100, 5000, 16, 16, 10), (13, 5000, 12, 256, 10), (5, 2000, 8, 64, 1),
     (10, 5000, 960, 256, 100)])
 def test_adc_plan_fits_the_card(b, n, m, K, C):
-    """Block shapes stay within sm_90's shared memory, cover the corpus,
-    and send a table too large for shared memory through the caches."""
+    """The plan stays within sm_90's shared memory (G tables, lists and
+    buffers together), its splits cover the corpus in whole tiles, its
+    buffer holds a tile's rows, the layout follows the table's size:
+    shared memory when one query's table fits beside its list and a
+    buffer, else through the caches with one query a block, and the
+    splits follow ``split_rule``; the wrapper's ``check_plan`` takes it."""
     p = plan(b, n, m, K, C, sms=132)
-    assert 1 <= p["G"] <= 8 and p["smem"] <= 232448
-    assert p["P"] >= C and p["BUF"] >= max(p["P"], 512)
+    G, P, BUF = p["G"], p["P"], p["BUF"]
+    table = 4 * m * K
+    assert (G, p["R"], p["threads"], p["lut_smem"]) in VARIANTS
+    assert G < 2 * b
+    assert p["tile_rows"] == tile_rows(p["R"], p["threads"])
+    assert P >= C and P & (P - 1) == 0 and BUF & (BUF - 1) == 0
+    assert BUF >= p["tile_rows"]
+    assert p["smem"] == smem_bytes(G, m, K, P, BUF, p["lut_smem"])
+    assert p["smem"] <= 232448 and p["blocks_per_sm"] >= 1
     assert p["splits"] * p["rows"] >= n > (p["splits"] - 1) * p["rows"]
-    assert p["lut_smem"] == (4 * m * K + 8 * (p["P"] + p["BUF"]) + 4
+    assert p["rows"] % p["tile_rows"] == 0 and 1 <= p["splits"] <= 128
+    assert p["lut_smem"] == (table + 8 * (P + tile_rows(1)) + 4
                              <= 232448)
+    if p["lut_smem"]:
+        assert G * table + 8 * G * (P + BUF) + 4 * G <= 232448
+    else:
+        assert G == 1
+    assert (p["splits"], p["rows"]) == split_rule(
+        b, n, G, p["tile_rows"], 132, p["blocks_per_sm"])
+    check_plan(p, b, n, m, K, C)
+
+
+@pytest.mark.parametrize("b,n,G,TR,per_sm,want", [
+    # the measured shapes: the groups fill the card, one range
+    (4096, 10**6, 4, 256, 2, 1), (4096, 10**6, 1, 2048, 1, 1),
+    (10_000, 10**6, 4, 256, 2, 1),
+    # small batches: the ranges whose blocks fit one wave of resident
+    # blocks, at most MAX_SPLITS (127 once 128 ranges are rounded to whole
+    # tiles)
+    (1, 10**6, 1, 256, 4, 127), (64, 10**6, 4, 256, 2, 16),
+    (8, 10**6, 1, 2048, 1, 16), (64, 10**6, 1, 2048, 1, 2),
+    (200, 10**6, 1, 2048, 1, 1),
+    # at least four tiles a range
+    (1, 5000, 1, 256, 4, 5), (1, 100, 1, 256, 4, 1)])
+def test_split_rule(b, n, G, TR, per_sm, want):
+    """As many ranges as one wave of resident blocks holds (at least one),
+    each at least four whole tiles, at most ``MAX_SPLITS``, covering n
+    with none empty."""
+    splits, rows = split_rule(b, n, G, TR, 132, per_sm)
+    assert splits == want and rows % TR == 0
+    assert splits * rows >= n > (splits - 1) * rows
+
+
+@pytest.mark.parametrize("change", [
+    dict(splits=1, rows=256), dict(splits=3, rows=256 * 100),
+    dict(P=8), dict(G=8), dict(R=3), dict(rows=1000), dict(BUF=128),
+    dict(P=1 << 16), dict(splits=MAX_SPLITS + 1)])
+def test_check_plan_refuses_a_plan_made_for_other_operands(change):
+    """A pinned plan that leaves rows unscanned, leaves a range empty,
+    keeps fewer than C pairs, names no compiled variant, cuts ranges off
+    the tile, holds less than a tile in its buffer or overflows shared
+    memory is refused before a launch."""
+    p = plan(100, 20_000, 16, 256, 10, sms=132, splits=2)
+    check_plan(p, 100, 20_000, 16, 256, 10)
+    with pytest.raises(ValueError, match="does not fit"):
+        check_plan(dict(p, **change), 100, 20_000, 16, 256, 10)
+
+
+@pytest.mark.parametrize("G,R,threads", sorted(
+    {(g, r, nt) for g, r, nt, _ in VARIANTS}))
+@pytest.mark.parametrize("m,K", [(12, 16), (16, 256), (20, 64), (8, 128)])
+def test_interleaved_layout_sums_match_lookup(G, R, threads, m, K):
+    """The kernel's index arithmetic (``interleaved_sums``: the [m][K][G]
+    tables, each lane's G queries and R rows) computes every (row, query)
+    of a block once and returns ``lookup``'s sums bit for bit: a tail
+    group (13 queries from q0 = 8; at G = 1 the block of query 8) and a
+    range of rows that starts inside the corpus and ends on a ragged
+    tile."""
+    rng = np.random.default_rng(G * 100 + R * 10 + m + threads)
+    n, b, q0 = 2700, 13, 8
+    codes = torch.as_tensor(rng.integers(0, K, (n, m)).astype(np.uint8))
+    luts = torch.as_tensor(rng.standard_normal((b, m, K)).astype(np.float32))
+    got = interleaved_sums(codes, luts, q0=q0, G=G, R=R, row_begin=100,
+                           row_end=n, threads=threads)
+    gq = min(G, b - q0)
+    want = lookup(codes[100:n], luts[q0:q0 + gq])
+    assert torch.equal(got[:gq], want)
+    assert bool((got[gq:] == 0).all())
 
 
 @pytest.mark.parametrize("args", [(8, 50, 16, 10), (4096, 10**6, 16, 1000),
