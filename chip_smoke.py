@@ -4,16 +4,16 @@
     python3 chip_smoke.py [--before DIR]
 
 ``--before DIR`` names the ``src/repro_torch/kernels/csrc`` of a checkout
-of the parent commit: its kernels 1, 2, 4 and 5 are built beside the
+of the parent commit: its kernels 1, 2, 4, 5 and 6 are built beside the
 tree's and timed on the same inputs in the same run (parent, tree, tree,
 parent), the BruteForce and IVF traces are taken on both, and IVF's
 recall, search time and grid sweep are measured on both (the parent's
 IVF: the window of the probed lists through its kernel 2), on the main
 and angular sets; kernel 2's parent is also timed on each consumer's
 window, and each consumer's search with it in the new kernel's place;
-kernel 4's parent must give the new kernel's answer bit for bit at every
-shape, and the PQ and int8 BruteForce searches run with each kernel 4 in
-its place (ids equal, recall equal, timed in turns).
+kernel 4's and kernel 6's parents must give the new kernel's answer bit
+for bit at every shape, and the PQ and int8 BruteForce searches run with
+each kernel 4 in its place (ids equal, recall equal, timed in turns).
 Without it the run is the tree's alone.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
@@ -41,8 +41,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     through it equals ``stream_topk`` bit for bit; k = 257 and 1,000),
     the other distances-out routes (``hamming_topk`` at k = 1,000,
     ``rerank_topk`` at k = 1,000 on IVF's window, ``adc_scan`` at
-    C = 1,500), ``embedding_bag`` (Criteo-1TB's largest table, 39,884,406 x
-    128 fp32, 65,536 bags of 8 lookups on average, bit for bit) and
+    C = 1,500), ``embedding_bag`` (Criteo-1TB's largest table, 39,884,406
+    rows, 524,288 lookups: 65,536 bags of 8 on average, one a bag and 100
+    a bag at D = 128 fp32, 65,536 bags in bf16 and at D = 16 and 10; bit
+    for bit, each with its plan and ptxas's registers, no variant
+    spilling, timed in CUDA graphs) and
     ``decode_attention`` (phi-4-mini at decode_32k: B = 128, 24 heads over
     8 KV heads, dh = 128, S = 32,768; gemma3-27b at long_500k: B = 1, 32
     heads over 16 KV heads, S = 524,288; bf16, within one bf16 ulp of the
@@ -224,15 +227,16 @@ def compare(torch, got, want_k1, k: int, tol: float, exact: bool = False):
 
 
 class Before:
-    """The parent commit's kernels 1, 2, 4 and 5, built from ``--before
+    """The parent commit's kernels 1, 2, 4, 5 and 6, built from ``--before
     DIR`` and launched with the parent's wrappers' arguments, for same-call
     comparisons.  The parent's kernel 1 takes a launch plan (query rows,
     splits, rows per split): it is given this tree's ``kernel_plan``;
     kernel 2's parent takes the window operands of the generic entry;
-    kernel 4's parent takes the plan of the parent's wrapper
-    (``adc_plan``)."""
+    kernel 4's parent takes this tree's ``kernel_plan`` (its wrapper is
+    the parent's); kernel 6's parent takes ``bag_runs``' runs."""
 
-    SOURCES = ("stream_topk", "distance_matrix", "rerank_topk", "adc_scan")
+    SOURCES = ("stream_topk", "distance_matrix", "rerank_topk", "adc_scan",
+               "embedding_bag")
 
     def __init__(self, src_dir: str):
         self.src = Path(src_dir).resolve()
@@ -276,7 +280,10 @@ class Before:
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
         fn.restype = i
         fn = self.libs["adc_scan"].adc_scan_launch
-        fn.argtypes = [p] * 6 + [i] * 11 + [p]
+        fn.argtypes = [p] * 6 + [i] * 13 + [p]
+        fn.restype = i
+        fn = self.libs["embedding_bag"].embedding_bag_launch
+        fn.argtypes = [p] * 7 + [i] * 3 + [p]
         fn.restype = i
 
     def stream_topk(self, Q, X, qsq, xsq, *, mode: str, k: int):
@@ -335,41 +342,14 @@ class Before:
         check(status == 0, f"before rerank_topk: CUDA error {status}")
         return out_d, out_i
 
-    @staticmethod
-    def adc_plan(b, n, m, K, C, sms):
-        """The parent wrapper's plan: G per-query tables (as many as two
-        blocks per SM allow, at most 8), lists of P = pow2(C), buffers of
-        max(P, 512), the corpus split for two blocks per SM."""
-        target, tile = 113 * 1024, 256
-        P = 1
-        while P < C:
-            P <<= 1
-        BUF = max(P, 2 * tile)
-        state = 8 * (P + BUF) + 4
-        per = 4 * m * K + state
-        if per <= target:
-            G, lut_smem = target // per, True
-        elif per <= 232448:
-            G, lut_smem = 1, True
-        else:
-            G, lut_smem = max(1, target // state), False
-        G = max(1, min(G, 8, b))
-        smem = G * (per if lut_smem else state)
-        per_sm = 2 if smem <= target else 1
-        groups = -(-b // G)
-        splits = max(1, min(-(-2 * sms * per_sm // groups), 128,
-                            -(-n // (4 * tile))))
-        rows = -(-(-(-n // splits)) // tile) * tile
-        return dict(G=G, lut_smem=lut_smem, P=P, BUF=BUF,
-                    splits=-(-n // rows), rows=rows, smem=smem)
-
     def adc_scan(self, codes, luts, *, k: int):
         import torch
 
+        from repro_torch.kernels.adc_scan.adc_scan import kernel_plan
+
         n, m = codes.shape
         b, _, K = luts.shape
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        p = self.adc_plan(b, n, m, K, k, sms)
+        p = kernel_plan(codes, luts, k)
         out_d = torch.empty((b, k), device="cuda")
         out_i = torch.empty((b, k), dtype=torch.int32, device="cuda")
         part_d, part_i = out_d, out_i
@@ -380,10 +360,28 @@ class Before:
         status = self.libs["adc_scan"].adc_scan_launch(
             codes.data_ptr(), luts.data_ptr(), part_d.data_ptr(),
             part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, n, m,
-            K, k, p["P"], p["BUF"], p["G"], int(p["lut_smem"]), p["splits"],
-            p["rows"], torch.cuda.current_stream().cuda_stream)
+            K, k, p["P"], p["BUF"], p["G"], p["R"], p["threads"],
+            int(p["lut_smem"]), p["splits"], p["rows"],
+            torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"before adc_scan: CUDA error {status}")
         return out_d, out_i
+
+    def embedding_bag(self, indices, weights, table, runs, *, n_bags: int):
+        """The parent's kernel 6 as its wrapper launched it: the runs of
+        ``bag_runs`` (one warp a run) into a zero-filled output."""
+        import torch
+
+        start, end, bag = runs
+        out = torch.zeros((n_bags, table.shape[1]), dtype=table.dtype,
+                          device="cuda")
+        status = self.libs["embedding_bag"].embedding_bag_launch(
+            indices.data_ptr(), weights.data_ptr(), table.data_ptr(),
+            start.data_ptr(), end.data_ptr(), bag.data_ptr(), out.data_ptr(),
+            start.shape[0], table.shape[1],
+            0 if table.dtype == torch.float32 else 1,
+            torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"before embedding_bag: CUDA error {status}")
+        return out
 
 
 def parent_ivf_search(torch, state, Q, before, *, n_probes, k: int = K,
@@ -404,14 +402,17 @@ def parent_ivf_search(torch, state, Q, before, *, n_probes, k: int = K,
     return before.rerank_topk(**ops)
 
 
-def same_call(torch, before_fn, after_fn, reps: int):
+def same_call(torch, before_fn, after_fn, reps: int, timer=None):
     """Parent and tree timed in turns (parent, tree, tree, parent), each a
-    ``cuda_ms`` of ``reps`` launches: ``{"before": [ms, ms], "after": [ms,
-    ms]}``."""
-    b1 = cuda_ms(torch, before_fn, reps)
-    a1 = cuda_ms(torch, after_fn, reps)
-    a2 = cuda_ms(torch, after_fn, reps)
-    b2 = cuda_ms(torch, before_fn, reps)
+    ``cuda_ms`` of ``reps`` launches, or ``timer(fn, reps)``: ``{"before":
+    [ms, ms], "after": [ms, ms]}``."""
+    if timer is None:
+        def timer(fn, reps):
+            return cuda_ms(torch, fn, reps)
+    b1 = timer(before_fn, reps)
+    a1 = timer(after_fn, reps)
+    a2 = timer(after_fn, reps)
+    b2 = timer(before_fn, reps)
     return {"before": [b1, b2], "after": [a1, a2]}
 
 
@@ -1186,7 +1187,6 @@ def phase_adc_scan(torch, peaks, clock_hz, before):
             pair = same_call(torch, lambda: before.adc_scan(codes, luts, k=C),
                              after, reps=3)
             pair["before_equals_after_bitwise"] = True
-            pair["before_plan"] = before.adc_plan(b, n, m, K, C, sms)
             ms = sum(pair["after"]) / 2
             del old
         adds = float(b) * n * m
@@ -1524,66 +1524,171 @@ def phase_routes(torch, ivf_state, Q):
     return out
 
 
-def phase_embedding_bag(torch, peaks):
+def embedbag_variants_ptxas() -> dict:
+    """ptxas's report of each compiled variant of kernel 6, by (dtype, vec,
+    cpl, U) as ``embedbag.VARIANTS`` names them."""
+    import re
+
+    from repro_torch import kernels
+
+    out = {}
+    for name, rep in ptxas_report(kernels.BUILD_INFO.get("embedding_bag",
+                                                         "")).items():
+        hit = re.search(r"embedding_bag_streamI(f|13__nv_bfloat16)"
+                        r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
+        if hit:
+            out[(0 if hit.group(1) == "f" else 1, int(hit.group(2)),
+                 int(hit.group(3)), int(hit.group(4)))] = rep
+    return out
+
+
+def phase_embedding_bag(torch, peaks, before):
     """Kernel 6 against its plain version on the largest table of
     Criteo-1TB (``models/recsys.py`` CRITEO_1TB_VOCABS: 39,884,406 rows) at
-    embed_dim 128 in fp32 (20.4 GB), 65,536 bags (the recsys train batch)
-    of 524,288 uniform lookups (8 per bag on average, the kernel bench's
-    N/B), weights in [0, 1), bags sorted, every thousandth bag left empty.
-    Bit for bit; timed beside ``torch.nn.functional.embedding_bag``."""
-    from repro_torch.kernels.embedbag import (bag_runs, embedding_bag_kernel,
+    the six cases of ``sweep_embedbag_plan.CASES``: 524,288 uniform
+    lookups with weights in [0, 1) into 65,536 bags (the recsys train
+    batch; 8 lookups a bag on average, every thousandth bag empty), into
+    one bag each, or 100 each; at embed_dim 128 in fp32 (20.4 GB) and
+    bf16, and at DCN-v2's 16 and FM's 10 in fp32.  Each case: the plan and
+    the variant's ptxas registers and spills (no variant may spill), bit
+    for bit with the plain version, the output in the table's type, every
+    empty bag zero though the output's memory held NaNs just before (the
+    kernel writes it; no zero fill), and the time (a CUDA graph of
+    launches that take ``SETS`` draws of the lookups in turn, so the rows
+    are read cold) beside the bound by bytes (element size from the
+    table's type) and ``torch.nn.functional.embedding_bag``.  With
+    ``before``, the parent's kernel (one warp a run, on ``bag_runs``) must
+    give the same bits and is timed in turns with the new one; at Criteo
+    and one-hot also what the op runs around each kernel: ``bag_spans``
+    and the kernel against ``bag_runs``, the zero fill and the parent's
+    kernel."""
+    import itertools
+
+    from repro_torch.benchmarks.common import graph_ms
+    from repro_torch.benchmarks.sweep_embedbag_plan import (CASES, N, SETS,
+                                                            V, lookups)
+    from repro_torch.kernels.embedbag import (bag_runs, bag_spans,
+                                              embedding_bag_kernel,
                                               embedding_bag_plain)
+    from repro_torch.kernels.embedbag.embedbag import VARIANTS, kernel_plan
 
     flops_peak, bytes_peak = peaks
+    variants = embedbag_variants_ptxas()
+    log(json.dumps({"phase": "embedbag_ptxas", "variants": {
+        f"dtype={dt},vec={v},cpl={c},U={u}": rep
+        for (dt, v, c, u), rep in sorted(variants.items())}}))
+    check(set(variants) == set(VARIANTS) and all(
+        rep.get("spill_bytes", 1) == 0 for rep in variants.values()),
+        f"embedding_bag: ptxas reports spills or misses a variant: "
+        f"{variants}")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    V, D, B, N = 39_884_406, 128, 65_536, 524_288
-    table = torch.randn((V, D), generator=gen, device="cuda")
-    idx = torch.randint(0, V, (N,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    bags = torch.randint(0, B, (N,), generator=gen, device="cuda")
-    bags = torch.sort(bags + (bags % 1000 == 7)).values.to(torch.int32)
-    w = torch.rand((N,), generator=gen, device="cuda")
-    runs = bag_runs(bags, n_bags=B)
-    got = embedding_bag_kernel(idx, w, table, runs, n_bags=B)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = embedding_bag_plain(idx, w, table, runs, n_bags=B)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    exact = bool(torch.equal(got, want))
-    empty = B - int(runs[0].numel())
-    ms = cuda_ms(torch, lambda: embedding_bag_kernel(idx, w, table, runs,
-                                                     n_bags=B), reps=10)
-    offsets = torch.searchsorted(bags, torch.arange(B, device="cuda",
-                                                    dtype=torch.int32))
-    idx64 = idx.long()
-    lib = torch.nn.functional.embedding_bag(
-        idx64, table, offsets, mode="sum", per_sample_weights=w)
-    library_err = float((lib - want).abs().max())
-    library_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
-        idx64, table, offsets, mode="sum", per_sample_weights=w), reps=10)
-    nbytes = 4.0 * N * D + 12.0 * N + 4.0 * B * D
-    ops = 2.0 * N * D
-    rec = {"kernel": "embedding_bag", "V": V, "D": D, "bags": B,
-           "lookups": N, "empty_bags": empty, "bitwise_equal": exact,
-           "max_abs_err": float((got - want).abs().max()), "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "library": "torch.nn.functional.embedding_bag(mode='sum', "
-                      "per_sample_weights)",
-           "library_max_abs_err": library_err,
-           "bound_ms": max(ops / flops_peak, nbytes / bytes_peak) * 1e3,
-           "bound_by": "operations" if ops / flops_peak
-           >= nbytes / bytes_peak else "bytes",
-           "gbytes_per_s": nbytes / ms / 1e6}
-    log(json.dumps(rec))
-    check(exact, "embedding_bag: not bitwise equal to its plain version")
-    touched = torch.zeros(B, dtype=torch.bool, device="cuda")
-    touched[runs[2].long()] = True
-    check(empty > 0 and bool((got[~touched] == 0).all()),
-          "embedding_bag: the case has no empty bag, or one is not zero")
-    del table, idx, bags, w, runs, got, want, lib, offsets, idx64, touched
+    tables = {}
+    recs = []
+    for name, D, dtype, B in CASES:
+        key = (D, dtype)
+        if key not in tables:
+            tables.clear()
+            torch.cuda.empty_cache()
+            tables[key] = torch.randn((V, D), generator=gen,
+                                      device="cuda").to(dtype)
+        table = tables[key]
+        bags, draws = lookups(name, B, V, gen, SETS)
+        idx, w = draws[0]
+        spans = bag_spans(bags, n_bags=B)
+        p = kernel_plan(idx, table, B)
+        poison = torch.full((B, D), float("nan"), dtype=table.dtype,
+                            device="cuda")
+        del poison                     # the output may reuse its memory
+        got = embedding_bag_kernel(idx, w, table, spans, n_bags=B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = embedding_bag_plain(idx, w, table, spans, n_bags=B)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        exact = bool(torch.equal(got, want))
+        empty = spans[0] == spans[1]
+        n_empty = int(empty.sum())
+        check(got.dtype == table.dtype and exact,
+              f"embedding_bag {name}: not bit for bit with its plain "
+              f"version (or not in the table's type)")
+        check(bool((got[empty] == 0).all())
+              and not bool(torch.isnan(got).any()),
+              f"embedding_bag {name}: an empty bag is not zero")
+        after = [lambda i=i, x=x: embedding_bag_kernel(i, x, table, spans,
+                                                        n_bags=B)
+                 for i, x in draws]
+        pair = op_pair = None
+        if before is None:
+            ms = graph_ms(after)
+        else:
+            runs = bag_runs(bags, n_bags=B)
+            old = before.embedding_bag(idx, w, table, runs, n_bags=B)
+            check(bool(torch.equal(old, got)),
+                  f"embedding_bag {name}: not bit for bit with the parent's "
+                  f"kernel")
+            pair = same_call(
+                torch, [lambda i=i, x=x: before.embedding_bag(
+                    i, x, table, runs, n_bags=B) for i, x in draws],
+                after, reps=20, timer=graph_ms)
+            pair["before_equals_after_bitwise"] = True
+            ms = sum(pair["after"]) / 2
+            if name in ("criteo", "one_hot"):
+                # the op's work around the kernel, host syncs included
+                old_ops = itertools.cycle(
+                    [lambda i=i, x=x: before.embedding_bag(
+                        i, x, table, bag_runs(bags, n_bags=B), n_bags=B)
+                     for i, x in draws])
+                new_ops = itertools.cycle(
+                    [lambda i=i, x=x: embedding_bag_kernel(
+                        i, x, table, bag_spans(bags, n_bags=B), n_bags=B)
+                     for i, x in draws])
+                op_pair = same_call(torch, lambda: next(old_ops)(),
+                                    lambda: next(new_ops)(), reps=20)
+                op_pair["bag_runs_ms"] = cuda_ms(
+                    torch, lambda: bag_runs(bags, n_bags=B), reps=20)
+                op_pair["bag_spans_ms"] = cuda_ms(
+                    torch, lambda: bag_spans(bags, n_bags=B), reps=20)
+            del old, runs
+        offsets = torch.searchsorted(bags, torch.arange(
+            B, device="cuda", dtype=torch.int32))
+        lib_in = [(i.long(), x.to(table.dtype)) for i, x in draws]
+
+        def library(i, x):
+            return torch.nn.functional.embedding_bag(
+                i, table, offsets, mode="sum", per_sample_weights=x)
+
+        lib = library(*lib_in[0])
+        library_err = float((lib.float() - want.float()).abs().max())
+        library_ms = graph_ms([lambda i=i, x=x: library(i, x)
+                               for i, x in lib_in])
+        isz = table.element_size()
+        nbytes = float(isz) * N * D + 8.0 * N + 8.0 * B + float(isz) * B * D
+        ops = 2.0 * N * D
+        bound_ms = max(ops / flops_peak, nbytes / bytes_peak) * 1e3
+        rec = {"kernel": "embedding_bag", "case": name, "V": V, "D": D,
+               "dtype": str(dtype), "bags": B, "lookups": N,
+               "lookup_sets": SETS, "empty_bags": n_empty, "plan": p,
+               "ptxas": variants[(p["dtype"], p["vec"], p["cpl"], p["U"])],
+               "bitwise_equal": exact,
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "torch.nn.functional.embedding_bag(mode='sum', "
+                          "per_sample_weights in the table's type)",
+               "library_max_abs_err": library_err, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops / flops_peak
+               >= nbytes / bytes_peak else "bytes",
+               "bound_share": bound_ms / ms,
+               "gbytes_per_s": nbytes / ms / 1e6, "same_call": pair,
+               "op_same_call": op_pair}
+        log(json.dumps(rec))
+        recs.append(rec)
+        del idx, w, bags, draws, spans, got, want, lib, offsets, lib_in
+        del after, empty
+    tables.clear()
     torch.cuda.empty_cache()
-    return rec
+    check(recs[0]["empty_bags"] > 0,
+          "embedding_bag: the Criteo case has no empty bag")
+    return recs[0]
 
 
 def profile_call(torch, fn, count: bool = False):
@@ -2034,7 +2139,7 @@ def main() -> int:
     k3 = phase_hamming_topk(torch, peaks, clock_hz)
     k4 = phase_adc_scan(torch, peaks, clock_hz, before)
     k5 = phase_distance_matrix(torch, peaks, before)
-    k6 = phase_embedding_bag(torch, peaks)
+    k6 = phase_embedding_bag(torch, peaks, before)
     k7 = phase_decode_attention(torch, peaks)
     from repro_torch.ann import ivf
     from repro_torch.data import get_dataset

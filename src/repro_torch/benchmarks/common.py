@@ -17,7 +17,7 @@ import os
 import pathlib
 import subprocess
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -85,6 +85,34 @@ def timed(fn: Callable, *args, n: int = 3, warmup: int = 1,
             fn(*args)
             best = min(best, (time.perf_counter() - t0) * 1e6)
     return best
+
+
+def graph_ms(fn: Union[Callable, Sequence[Callable]],
+             reps: int = 20) -> float:
+    """Mean device time of a call over ``reps`` calls captured in one CUDA
+    graph and replayed once, by CUDA events, after a warm-up call of each:
+    the host's cost of a call (a Python wrapper, a ctypes launch) drops
+    out, which matters where a kernel runs for tens of microseconds.
+    ``fn`` is one callable, or several (the same work on other inputs)
+    taken in turn: inputs whose data together exceed the L2 cache keep
+    each call's reads as cold as a caller's first."""
+    fns = [fn] if callable(fn) else list(fn)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in range(reps):
+            fns[r % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def form_factor(name: str) -> str:

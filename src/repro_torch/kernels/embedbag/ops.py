@@ -3,12 +3,12 @@
 
 ``embedding_bag(table, indices, bags, weights, n_bags=...)`` sorts the
 lookups by bag id with a stable sort unless ``assume_sorted`` (the
-kernel's layout contract), cuts them into runs of equal bag ids, and keeps
-the last run of each bag: the Pallas kernel re-initialises a bag's row at
-each new run, so with ``assume_sorted=True`` and unsorted bags the last
-run wins.  Bags without a run are zero (the reference's final mask).  CUDA
-tensors go to the kernel (``embedding_bag_kernel``), CPU tensors to its
-plain version.
+kernel's layout contract) and gives each bag the span of its last run of
+equal bag ids (``bag_spans``): the Pallas kernel re-initialises a bag's
+row at each new run, so with ``assume_sorted=True`` and unsorted bags the
+last run wins.  Bags without a run are zero (the reference's final mask;
+the kernel writes them).  CUDA tensors go to the kernel
+(``embedding_bag_kernel``), CPU tensors to its plain version.
 """
 
 from __future__ import annotations
@@ -46,6 +46,34 @@ def bag_runs(bags: torch.Tensor, *, n_bags: int):
             bag[keep].to(torch.int32))
 
 
+def bag_spans(bags: torch.Tensor, *, n_bags: int):
+    """(start, end) int32 [n_bags]: the lookups [start, end) of the last
+    run of equal ids of each bag id in ``bags``, start == end == 0 for a
+    bag without one; built with torch ops on ``bags``' device.  A bag's
+    last run starts at the last run start with its id and ends after its
+    last lookup, so two scatter-maxes over the lookups give both.  Raises
+    if a bag id lies outside [0, n_bags): the kernel writes rows
+    unchecked."""
+    N = bags.shape[0]
+    dev = bags.device
+    if N == 0:
+        empty = torch.zeros(n_bags, dtype=torch.int32, device=dev)
+        return empty, empty.clone()
+    lo, hi = _bounds(bags)
+    if lo < 0 or hi >= n_bags:
+        raise ValueError(f"embedding_bag: bag ids span [{lo}, {hi}], outside "
+                         f"[0, {n_bags})")
+    pos = torch.arange(N, dtype=torch.int32, device=dev)
+    new = torch.ones(N, dtype=torch.bool, device=dev)
+    new[1:] = bags[1:] != bags[:-1]
+    bag = bags.long()
+    start = torch.full((n_bags,), -1, dtype=torch.int32, device=dev) \
+        .scatter_reduce_(0, bag, torch.where(new, pos, -1), reduce="amax")
+    end = torch.zeros(n_bags, dtype=torch.int32, device=dev) \
+        .scatter_reduce_(0, bag, pos + 1, reduce="amax")
+    return start.clamp_min_(0), end
+
+
 def _bounds(t: torch.Tensor):
     """(min, max) of a non-empty integer tensor, with one host sync."""
     lo, hi = torch.aminmax(t)
@@ -73,7 +101,7 @@ def embedding_bag(table, indices, bags, weights=None, *, n_bags: int,
     if not assume_sorted:
         order = torch.sort(bags, stable=True).indices
         indices, bags, weights = indices[order], bags[order], weights[order]
-    runs = bag_runs(bags, n_bags=n_bags)
+    spans = bag_spans(bags, n_bags=n_bags)
     fn = embedding_bag_kernel if table.is_cuda else embedding_bag_plain
-    return fn(indices.contiguous(), weights.contiguous(), table, runs,
+    return fn(indices.contiguous(), weights.contiguous(), table, spans,
               n_bags=n_bags)

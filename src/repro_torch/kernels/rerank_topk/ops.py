@@ -44,18 +44,20 @@ from repro_torch.kernels.rerank_topk.rerank_topk import (
 _FOLD_BUDGET = 32 << 20     # torch fold: gathered-chunk working set
 
 
-def pick_rerank_block(b: int, C: int, d: int, k: int) -> int:
+def pick_rerank_block(b: int, C: int, d: int, k: int, *,
+                      itemsize: int = 4, budget: int = _FOLD_BUDGET) -> int:
     """Candidate-block size for the streaming fold: the largest power of two
-    (128..4096) whose [b, block, d] gathered chunk plus merge state fits
-    ``budget``; small windows collapse to one block."""
+    (128..4096) whose [b, block, d] gathered chunk plus merge state, at
+    ``itemsize`` bytes an entry, fits ``budget``; small windows collapse to
+    one block."""
     block = 4096
 
     def working_set(blk: int) -> int:
-        return 4 * max(1, b) * (blk * (d + 2) + 3 * k)
+        return itemsize * max(1, b) * (blk * (d + 2) + 3 * k)
 
     while block > 128 and block >= 2 * max(1, C):
         block //= 2
-    while block > 128 and working_set(block) > _FOLD_BUDGET:
+    while block > 128 and working_set(block) > budget:
         block //= 2
     return block
 

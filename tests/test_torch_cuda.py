@@ -1080,3 +1080,109 @@ def test_generic_entry_shapes_match_plain(cuda, metric, d, k):
     assert bool((gi[7] == -1).all())
     ops.pop("k")
     assert torch.equal(rerank_dist_kernel(**ops), rerank_dist_plain(**ops))
+
+
+# ------------------------- kernel 6: every variant, spans, unaligned tables
+def _embedbag_stream_case(cuda, D, dtype, seed, B=57, V=300):
+    """Bags of 0, 1, 31, 33 and 100 lookups in a random order, and three
+    tables of the same rows: contiguous, a view one row in, and a copy one
+    element past a 16-byte boundary."""
+    from repro_torch.kernels.embedbag import bag_spans
+
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([0, 1, 31, 33, 100], B)
+    lens[:5] = [0, 1, 31, 33, 100]
+    bags = torch.as_tensor(np.repeat(np.arange(B), lens).astype(np.int32))
+    N = bags.numel()
+    big = torch.as_tensor(rng.standard_normal((V + 1, D)).astype(np.float32))
+    big = big.to(device=cuda, dtype=dtype)
+    idx = torch.as_tensor(rng.integers(0, V, N).astype(np.int32)).to(cuda)
+    w = torch.as_tensor(rng.random(N).astype(np.float32)).to(cuda)
+    tables = {"contiguous": big[1:].clone(), "row_view": big[1:],
+              "off16": _off16(big[1:])}
+    return idx, w, tables, bag_spans(bags.to(cuda), n_bags=B), B
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 10, 16, 128, 200, 256])
+def test_embedding_bag_every_variant_matches_plain(cuda, dtype, D):
+    """Every compiled variant (vector bytes, lanes, rows in flight) that can
+    take the rows, with one bag a group and the plan's range, on each
+    layout of the table: bit for bit with the plain version, the output
+    in the table's type; the default plan on memory that held NaNs."""
+    from repro_torch.kernels.embedbag import (embedding_bag_kernel,
+                                              embedding_bag_plain)
+    from repro_torch.kernels.embedbag.embedbag import (VARIANTS, DTYPES,
+                                                       kernel_plan, plan)
+
+    idx, w, tables, spans, B = _embedbag_stream_case(cuda, D, dtype, D)
+    want = embedding_bag_plain(idx, w, tables["contiguous"], spans,
+                               n_bags=B)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tried = set()
+    for layout, table in tables.items():
+        aligned = table.data_ptr() % 16 == 0
+        assert aligned == (layout == "contiguous"
+                           or (layout == "row_view" and D * table
+                               .element_size() % 16 == 0))
+        torch.full((B, D), float("nan"), dtype=dtype, device=cuda)
+        got = embedding_bag_kernel(idx, w, table, spans, n_bags=B)
+        assert got.dtype == dtype and torch.equal(got, want), layout
+        for dt, vec, cpl, U in VARIANTS:
+            if dt != DTYPES[dtype]:
+                continue
+            for bpg in (1, None):
+                try:
+                    p = plan(B, idx.numel(), D, dtype, aligned, sms, 2,
+                             vec=vec, cpl=cpl, bags_per_group=bpg)
+                except ValueError:      # vectors that do not divide a row
+                    continue
+                before = embedding_bag_kernel.launches
+                got = embedding_bag_kernel(idx, w, table, spans, n_bags=B,
+                                           plan=p)
+                assert embedding_bag_kernel.launches == before + 1
+                assert torch.equal(got, want), (layout, p)
+                tried.add((vec, cpl, U))
+        assert kernel_plan(idx, table, B)["vec"] in {v for v, _, _ in tried}
+    assert tried
+
+
+def test_embedding_bag_last_run_wins_on_the_kernel(cuda):
+    from repro_torch.kernels.embedbag import (bag_runs, embedding_bag,
+                                              embedding_bag_kernel,
+                                              embedding_bag_plain)
+
+    rng = np.random.default_rng(9)
+    table = torch.as_tensor(rng.standard_normal((40, 64)).astype(
+        np.float32)).to(cuda)
+    bags = np.array([0, 0, 1, 0, 2, 2, 1, 1, 1, 0] * 7)
+    idx = rng.integers(0, 40, bags.size)
+    w = rng.random(bags.size).astype(np.float32)
+    before = embedding_bag_kernel.launches
+    got = embedding_bag(table, idx, bags, w, n_bags=4, assume_sorted=True)
+    assert embedding_bag_kernel.launches == before + 1
+    t = torch.as_tensor
+    want = embedding_bag_plain(
+        t(idx, dtype=torch.int32, device=cuda), t(w, device=cuda), table,
+        bag_runs(t(bags, dtype=torch.int32, device=cuda), n_bags=4),
+        n_bags=4)
+    assert torch.equal(got, want) and bool((got[3] == 0).all())
+
+
+def test_embedding_bag_kernel_refuses_a_plan_for_other_operands(cuda):
+    from repro_torch.kernels.embedbag import embedding_bag_kernel
+    from repro_torch.kernels.embedbag.embedbag import kernel_plan, plan
+
+    idx, w, tables, spans, B = _embedbag_stream_case(cuda, 10, torch.float32,
+                                                     4)
+    table = tables["off16"]
+    good = kernel_plan(idx, table, B)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    before = embedding_bag_kernel.launches
+    for bad in (plan(B, idx.numel(), 10, torch.float32, True, sms, 2),
+                dict(good, grid=good["grid"] - 1), dict(good, U=3),
+                plan(100 * B, idx.numel(), 10, torch.float32, False, sms, 2,
+                     bags_per_group=1)):
+        with pytest.raises(ValueError, match="does not fit"):
+            embedding_bag_kernel(idx, w, table, spans, n_bags=B, plan=bad)
+    assert embedding_bag_kernel.launches == before

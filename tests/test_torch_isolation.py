@@ -161,3 +161,13 @@ def test_runner_cli_requires_config_and_honours_device(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         runner.main(["--dataset", "blobs-euclidean-300", "--config",
                      str(cfg), "--out", str(tmp_path / "r")])
+
+
+def test_embedbag_sweep_refuses_without_cuda(no_cuda):
+    """Kernel 6's plan sweep measures the card: without one it stops.  The
+    import test above loads it with every port module (no JAX)."""
+    from repro_torch.benchmarks import sweep_embedbag_plan
+
+    assert "repro_torch.benchmarks.sweep_embedbag_plan" in _modules()
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        sweep_embedbag_plan.main()
