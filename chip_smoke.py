@@ -91,6 +91,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
     must not fall as its knob grows.
+    After them, the graphs path (no TPU kernel: the beam search is torch
+    ops): KNNGraph(degree 16) and HNSW(M 16, efC 80) on
+    ``blobs-euclidean-10000-d128`` (SIFT's width; n cut because HNSW's
+    build is a host loop of ~4 ms a point, and cut from 20,000 to keep the
+    smoke near 600 s) and KNNGraph on the angular set, at ef [16, 64];
+    then HNSW in single-query mode on the same index (the builds are kept,
+    ``kept_builds``); for each index the first 100 queries on the card
+    against a CPU copy of the same state, through the static path and the
+    grid sweep the runner times (at least 99 equal in ids, and in
+    expansions on the static path; each that differs is logged), and one
+    batched search of each family at ef 64 under ``torch.profiler``
+    (device launches, device ms, idle share).
  4. the bench path, counts set to 0 before and read after:
     ``repro_torch.benchmarks.run --scale default --only kernels,stream``
     and ``bench_distance_topk`` at ``full`` (n up to 10^6, equal-memory
@@ -99,7 +111,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     version at the bench's own shapes (distances within rtol 1e-5, atol
     1e-4; hamming_topk and embedding_bag bit for bit; decode_attention
     within 1e-5), and both the materialising (kernel 5 + top-k) and the
-    streaming top-k against the oracle at every n.
+    streaming top-k against the oracle at every n.  Then the figure path:
+    ``repro_torch.benchmarks.run --scale smoke --only fig4,...,fig11``
+    (n = 2,000), counts set to 0 before and read after: every module
+    prints its rows (``FIGURE_ROWS``), and kernels 1 (fig11's
+    BruteForce(pallas)) and 3 (fig9's BruteForceHamming(pallas)) launch.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its numbers and its launches, summed over the ANN
@@ -110,6 +126,7 @@ Datasets are cached under ``build/data`` beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -127,6 +144,16 @@ MAIN = "blobs-euclidean-1000000-d128"
 ANGULAR = "blobs-angular-200000-d100"
 HAMMING = "random-hamming-1000000-b256"
 PLANTED = "random-euclidean-1000000-d128"
+# The graph family's SIFT-width set: n cut from 10^6 because HNSW's build
+# is the reference's host loop (~4 ms a point on one core), and from the
+# figure benches' 20,000 to keep the smoke near 600 s.
+GRAPHS = "blobs-euclidean-10000-d128"
+FIGURES = "fig4,fig5,fig6,fig8,fig9,fig10,fig11"
+# rows each figure bench prints at --scale smoke (its config's runs;
+# run_benchmark reports a failed definition and goes on, so a missing row
+# is a failure here)
+FIGURE_ROWS = {"fig4": 21, "fig5": 4, "fig6": 6, "fig8": 4, "fig9": 6,
+               "fig10": 5, "fig11": 6}
 PQ16 = {"pq": {"m": 16, "bits": 8}}
 # On PLANTED, recall of PQ BruteForce at n_cand 1000 must reach 1 - PQ_EPS.
 # Not on MAIN: there the ten neighbours are among ~4,000 points of one
@@ -1935,8 +1962,14 @@ def config():
                       "args": [8, 8, 4.0, 64, 0, True],
                       "query-args": [[1, 4, 16]]}}},
     }
+    graph = {"constructor": "KNNGraph", "base-args": ["@metric"],
+             "run-groups": {"g": {"args": [16], "query-args": [[16, 64]]}}}
+    euclidean["graph"] = graph
+    euclidean["hnsw"] = {"constructor": "HNSW", "base-args": ["@metric"],
+                         "run-groups": {"g": {"args": [16, 80],
+                                              "query-args": [[16, 64]]}}}
     angular = {
-        "bruteforce": bruteforce, "ivf": ivf,
+        "bruteforce": bruteforce, "ivf": ivf, "graph": graph,
         "hyperplane": {"constructor": "HyperplaneLSH",
                        "base-args": ["@metric"],
                        "run-groups": {"kernel": {
@@ -2099,6 +2132,224 @@ def run_single(torch, name: str, ds, algo: str, kernel: str):
     return launches
 
 
+@contextlib.contextmanager
+def kept_builds(names):
+    """While open, each functional spec of ``names`` keeps the index it
+    builds: a later build of the same points with the same parameters
+    returns it (HNSW's host build takes minutes), and ``kept[(algo,
+    metric)]`` holds the newest state of each for the smoke's own
+    checks."""
+    import dataclasses
+    import hashlib
+
+    from repro_torch.ann.functional import FUNCTIONAL
+
+    cache, kept, saved = {}, {}, {name: FUNCTIONAL[name] for name in names}
+
+    def keeping(name, build):
+        def kept_build(X, **params):
+            key = (name, hashlib.sha1(np.ascontiguousarray(X)).hexdigest(),
+                   repr(sorted(params.items())))
+            if key not in cache:
+                cache[key] = build(X, **params)
+            kept[name, params.get("metric")] = cache[key]
+            return cache[key]
+        return kept_build
+
+    for name, spec in saved.items():
+        FUNCTIONAL[name] = dataclasses.replace(
+            spec, build=keeping(name, spec.build))
+    try:
+        yield kept
+    finally:
+        FUNCTIONAL.update(saved)
+
+
+def graph_agreement(torch, label, mod, state, Q, efs=(16, 64),
+                    n: int = 100):
+    """The first ``n`` queries searched on the card and on a CPU copy of
+    the same state (its tensors as numpy arrays, through
+    ``state_from_reference``), at each ef of ``efs``: through the static
+    path (ids and expansions) and through the grid sweep the runner times
+    (``search_sweep_points``: ef a 0-d tensor under ``max_ef``, ids).  At
+    least 99 of 100 queries must agree on each; each static query that
+    differs is logged with its first differing id and distance.  The graph
+    family has no kernel and so no plain version to hold one against: this
+    check stands in."""
+    from repro_torch.ann.functional import search_sweep_points
+    from repro_torch.convert import state_from_reference
+
+    arrays = {k: tuple(t.cpu().numpy() for t in v) if isinstance(v, tuple)
+              else v.cpu().numpy() for k, v in state.arrays.items()}
+    cpu = state_from_reference(state.algo, state.metric, arrays,
+                               state.static, device="cpu")
+    n = min(n, len(Q))
+    q = np.asarray(Q[:n])
+    points = [{"ef": ef} for ef in efs]
+    gsi = search_sweep_points(state, q, k=K, points=points)[1].cpu()
+    csi = search_sweep_points(cpu, q, k=K, points=points)[1]
+    recs = []
+    for s, ef in enumerate(efs):
+        gd, gi, git = (t.cpu() for t in mod.search_with_stats(
+            state, q, k=K, ef=ef))
+        cd, ci, cit = mod.search_with_stats(cpu, q, k=K, ef=ef)
+        same = (gi == ci).all(dim=1) & (git == cit)
+        same_sweep = int((gsi[s] == csi[s]).all(dim=1).sum())
+        differ = []
+        for row in torch.nonzero(~same).flatten().tolist():
+            cols = torch.nonzero(gi[row] != ci[row]).flatten().tolist()
+            j = cols[0] if cols else None
+            differ.append({
+                "query": row, "expansions": [int(git[row]), int(cit[row])],
+                "first_col": j,
+                "ids": None if j is None else [int(gi[row, j]),
+                                               int(ci[row, j])],
+                "dists": None if j is None else [float(gd[row, j]),
+                                                 float(cd[row, j])]})
+        rec = {"phase": "graph_agreement", "what": label, "ef": ef, "n": n,
+               "equal": int(same.sum()), "equal_sweep": same_sweep,
+               "differ": differ,
+               "max_abs_err_equal": float((gd - cd)[same].abs().max())
+               if bool(same.any()) else None,
+               "expansions_mean": float(git.float().mean()),
+               "expansions_max": int(git.max())}
+        log(json.dumps(rec))
+        check(int(same.sum()) >= 0.99 * n,
+              f"{label} ef {ef}: card and CPU differ on "
+              f"{n - int(same.sum())} of {n} queries")
+        check(same_sweep >= 0.99 * n,
+              f"{label} ef {ef}: the sweep's ids differ on card and CPU on "
+              f"{n - same_sweep} of {n} queries")
+        check(bool((git > 0).all()), f"{label}: a query expanded nothing")
+        recs.append(rec)
+    return recs
+
+
+def graph_profile(torch, label, mod, state, Q, ef: int):
+    """One batched search under ``torch.profiler``: device launches,
+    device ms by name, idle share of the window, and the iterations the
+    longest lane took (each iteration is one step of every lane)."""
+    out = {}
+
+    def call():
+        out["it"] = mod.search_with_stats(state, Q, k=K, ef=ef)[2]
+
+    by_name, idle, window_ms, launches = profile_call(torch, call,
+                                                      count=True)
+    rec = {"phase": "graph_profile", "what": label, "ef": ef,
+           "nq": int(Q.shape[0]), "window_ms": window_ms,
+           "device_ms": sum(by_name.values()), "idle": idle,
+           "launches": launches, "iterations": int(out["it"].max()),
+           "top": top_device_ms(by_name, 12)}
+    log(json.dumps(rec))
+    return rec
+
+
+def graph_single(torch, ds, algo: str):
+    """``algo`` in single-query mode on every query of ``ds`` (the kept
+    index: no second build)."""
+    from repro_torch.core.config import get_definitions
+    from repro_torch.core.experiment import ExperimentSettings, run_definition
+
+    definition = get_definitions(config(), point_type=ds.point_type,
+                                 metric=ds.metric, dimension=ds.dimension,
+                                 count=K, algorithms=[algo])[0]
+    t0 = time.perf_counter()
+    single = run_definition(definition, ds, ExperimentSettings(
+        count=K, batch_mode=False, device="cuda"))
+    log(json.dumps({"phase": "graphs_single", "dataset": ds.name,
+                    "seconds": time.perf_counter() - t0}))
+    rows = check_records(single, ds.name, ds.n, {algo: 2})[algo]
+    check(all(r["attrs"].get("dist_comps", 0) > 0 for r in rows),
+          f"{algo} single mode counted no distance computations")
+    return rows
+
+
+def phase_graphs(torch):
+    """The graph family (KNNGraph, HNSW; no TPU kernel: the beam search is
+    torch ops) through ``run_benchmark`` in batch mode at ef [16, 64],
+    then HNSW in single mode, each set's card-against-CPU agreement and
+    one profiled batched search of each family at ef 64."""
+    from repro_torch.ann import graph, hnsw
+    from repro_torch.data import get_dataset
+
+    t0 = time.perf_counter()
+    out = {}
+    with kept_builds(("KNNGraph", "HNSW")) as kept:
+        ds = get_dataset(GRAPHS, device="cuda")
+        check(ds.test.shape[0] == ds.n // 100,
+              f"{GRAPHS} has shape {ds.train.shape} / {ds.test.shape}")
+        _, out["sift"] = run_path(torch, "graphs_sift", GRAPHS,
+                                  {"graph": 2, "hnsw": 2}, ds.n, ())
+        t1 = time.perf_counter()
+        out["hnsw_single"] = graph_single(torch, ds, "hnsw")
+        t2 = time.perf_counter()
+        for algo, mod in (("KNNGraph", graph), ("HNSW", hnsw)):
+            out[f"agree_{algo}"] = graph_agreement(
+                torch, f"{algo} {GRAPHS}", mod, kept[algo, "euclidean"],
+                ds.test)
+        Q = torch.as_tensor(ds.test, device="cuda")
+        out["profile_hnsw"] = graph_profile(
+            torch, f"HNSW {GRAPHS}", hnsw, kept["HNSW", "euclidean"], Q, 64)
+        t3 = time.perf_counter()
+        ads = get_dataset(ANGULAR, device="cuda")
+        _, out["glove"] = run_path(torch, "graphs_glove", ANGULAR,
+                                   {"graph": 2}, ads.n, ())
+        t4 = time.perf_counter()
+        state = kept["KNNGraph", "angular"]
+        out["agree_KNNGraph_angular"] = graph_agreement(
+            torch, f"KNNGraph {ANGULAR}", graph, state, ads.test)
+        Q = torch.as_tensor(ads.test, device="cuda")
+        out["profile_knngraph"] = graph_profile(
+            torch, f"KNNGraph {ANGULAR}", graph, state, Q, 64)
+    log(json.dumps({"phase": "graphs", "seconds": time.perf_counter() - t0,
+                    "sift_batch_s": t1 - t0, "hnsw_single_s": t2 - t1,
+                    "sift_checks_s": t3 - t2, "glove_batch_s": t4 - t3,
+                    "glove_checks_s": time.perf_counter() - t4}))
+    return out
+
+
+def phase_figures(torch):
+    """The figure path: ``repro_torch.benchmarks.run --scale smoke --only
+    fig4,...,fig11``, launch counts set to 0 before and read after.  Every
+    module must print its rows (``FIGURE_ROWS``), named under its key, and
+    kernels 1 (fig11's BruteForce(pallas)) and 3 (fig9's
+    BruteForceHamming(pallas)) must launch."""
+    import io
+
+    from repro_torch.benchmarks import run as bench_run
+
+    out = ROOT / "build" / "figures"
+    for key in FIGURE_ROWS:
+        art = out / f"BENCH_{key}.json"
+        if art.exists():
+            art.unlink()
+    t0 = time.perf_counter()
+    reset_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_run.main(["--scale", "smoke", "--only", FIGURES,
+                             "--out", str(out), "--device", "cuda"])
+    launches = read_counters()
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(line)
+    check(rc == 0, "repro_torch.benchmarks.run failed on the figures")
+    rows = {}
+    for key, n_rows in FIGURE_ROWS.items():
+        names = [r["name"] for r in json.loads(
+            (out / f"BENCH_{key}.json").read_text())["rows"]]
+        check(len(names) == n_rows and all(
+            name.startswith(f"{key}/") for name in names),
+            f"{key}: rows {names}, not {n_rows} under {key}/")
+        rows[key] = len(names)
+    log(json.dumps({"phase": "figures", "rows": rows, "launches": launches,
+                    "seconds": seconds}))
+    check(launches["stream_topk"] > 0 and launches["hamming_topk"] > 0,
+          f"figures: kernel 1 or 3 never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -2209,9 +2460,12 @@ def main() -> int:
          200_000, ("stream_topk", "rerank_topk", "rerank_lists"))
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "ann_paths", "launches": paths}))
+    phase_graphs(torch)
+    torch.cuda.empty_cache()
 
-    # 4. the bench path
+    # 4. the bench path, then the figure path
     bench_launches = phase_bench(torch)
+    phase_figures(torch)
 
     no_library = ("no single PyTorch call computes a fused distance + "
                   "(unique) top-k")

@@ -59,15 +59,17 @@ def hamming_matrix(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
 def masked_rows_to(X: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
                    metric: str) -> torch.Tensor:
-    """Distances from ONE query to the gathered rows ``X[ids]``; entries
-    with ``ids < 0`` come back +inf (gather-safe).  Squared L2 for
-    euclidean, ``1 - x.q`` for angular: the beam-search comparator the
-    graph algorithms share."""
+    """Distances from ONE query ``q [d]`` to the gathered rows ``X[ids]``
+    (``ids [m]``), or from each query of a batch ``q [b, d]`` to its own
+    rows (``ids [b, m]``); entries with ``ids < 0`` come back +inf
+    (gather-safe).  Squared L2 for euclidean, ``1 - x.q`` for angular: the
+    beam-search comparator the graph algorithms share."""
     x = X[torch.clamp_min(ids, 0).long()]
     if metric == "angular":
-        d = 1.0 - x @ q
+        d = 1.0 - (x @ q if q.dim() == 1
+                   else torch.bmm(x, q[:, :, None])[:, :, 0])
     else:
-        diff = x - q[None, :]
+        diff = x - q[..., None, :]
         d = torch.sum(diff * diff, dim=-1)
     return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
 

@@ -66,8 +66,12 @@ class IndexState:
         return torch.device("cpu")
 
     def nbytes(self) -> int:
+        """Bytes of every tensor, those inside a tuple or list included
+        (HNSW's ``layers``), as the reference counts every tree leaf."""
+        leaves = [leaf for a in self.arrays.values()
+                  for leaf in (a if isinstance(a, (tuple, list)) else (a,))]
         return int(sum(a.numel() * a.element_size()
-                       for a in self.arrays.values() if torch.is_tensor(a)))
+                       for a in leaves if torch.is_tensor(a)))
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (f"IndexState({self.algo!r}, {self.metric!r}, "

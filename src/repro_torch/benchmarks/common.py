@@ -2,7 +2,8 @@
 reference).
 
 Each benchmark module exposes ``run(scale, device) -> list[Row]``.  Rows
-print as ``name,us_per_call,derived`` CSV.  On the card a time is device
+print as ``name,us_per_call,derived`` CSV.  The figure benches size their
+datasets by :func:`dataset_size`.  On the card a time is device
 time by CUDA events; on the CPU (``--device cpu``) it is the host clock of
 the plain versions, a check that the path runs and no device metric.  The
 bounds in ``derived`` come from the card's published peaks (:data:`PEAKS`)
@@ -113,6 +114,24 @@ def graph_ms(fn: Union[Callable, Sequence[Callable]],
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SCALES = {
+    # dataset size per scale; the figure benches pick n by scale
+    "smoke": 2_000,
+    "default": 20_000,
+    "full": 100_000,
+}
+
+
+# query repetitions of every figure bench's run_benchmark (best of two): the
+# first holds each instance's first call (a kernel's load, the allocator's
+# first blocks), which no row is meant to time
+REPETITIONS = 2
+
+
+def dataset_size(scale: str) -> int:
+    return SCALES.get(scale, SCALES["default"])
 
 
 def form_factor(name: str) -> str:

@@ -2,15 +2,24 @@
 reference).
 
     python -m repro_torch.benchmarks.run [--scale smoke|default|full]
-        [--only kernels,stream] [--device cuda|cpu] [--out DIR]
+        [--only fig4,fig9,...] [--device cuda|cpu] [--out DIR]
 
 Runs on the card unless ``--device cpu`` is passed (the plain versions on
 the CPU: a check that the path runs, no device metric).  Prints
 ``name,us_per_call,derived`` CSV; ``--out`` also writes one
-``BENCH_<key>.json`` per module.  Ported so far:
+``BENCH_<key>.json`` per module.  Modules map 1:1 onto the paper's
+tables/figures, as in the reference:
+    bench_recall_qps      Figure 4  (recall vs QPS)
+    bench_index_size      Figure 5 + Table 1 (index size / QPS)
+    bench_robustness      Figure 6 + Q2 (Rand-Euclidean)
+    bench_approximation   Figure 8 + Q3 (eps-recall)
+    bench_hamming         Figure 9 + Q4 (Hamming embeddings)
+    bench_build_time      Figure 10 (build time)
+    bench_batch_mode      Figure 11 + §4.4 (batch vs single)
     bench_kernels         kernel micro-benchmarks with bounds and parity
     bench_distance_topk   streaming vs materialising top-k, equal memory
-The reference's other modules are still to port (ROADMAP).
+The reference's ``serve`` module (``bench_engine``) waits for serving to
+be ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +31,13 @@ import time
 import traceback
 
 MODULES = [
+    ("fig4", "repro_torch.benchmarks.bench_recall_qps"),
+    ("fig5", "repro_torch.benchmarks.bench_index_size"),
+    ("fig6", "repro_torch.benchmarks.bench_robustness"),
+    ("fig8", "repro_torch.benchmarks.bench_approximation"),
+    ("fig9", "repro_torch.benchmarks.bench_hamming"),
+    ("fig10", "repro_torch.benchmarks.bench_build_time"),
+    ("fig11", "repro_torch.benchmarks.bench_batch_mode"),
     ("kernels", "repro_torch.benchmarks.bench_kernels"),
     ("stream", "repro_torch.benchmarks.bench_distance_topk"),
 ]

@@ -28,13 +28,17 @@ def state_from_reference(algo: str, metric: str,
                          static: Mapping[str, Any],
                          device=None) -> IndexState:
     """An IndexState on ``device`` holding the same arrays and statics.
-    uint32 arrays (packed codes) become int32 tensors with the same bits."""
+    uint32 arrays (packed codes) become int32 tensors with the same bits;
+    a tuple or list of arrays (HNSW's ``layers``, one width per level)
+    becomes a tuple of tensors."""
     dev = resolve_device(device)
-    out = {}
-    for name, a in arrays.items():
+
+    def tensor(a):
         a = np.asarray(a)
         if a.dtype == np.uint32:
-            out[name] = words_to_tensor(a, dev)
-        else:
-            out[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
+            return words_to_tensor(a, dev)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    out = {name: tuple(tensor(x) for x in a) if isinstance(a, (tuple, list))
+           else tensor(a) for name, a in arrays.items()}
     return IndexState(algo, metric, out, dict(static))

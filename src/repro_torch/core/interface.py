@@ -120,8 +120,12 @@ class FunctionalANN(BaseANN):
     def _rebind(self) -> None:
         from repro_torch.ann.functional import bind_search
 
-        self._search = bind_search(self._spec.search, self._spec,
+        self._search = bind_search(self._search_fn(), self._spec,
                                    traced=self._traced_knobs)
+
+    def _search_fn(self):
+        """Hook: the search function to bind (default: the spec's)."""
+        return self._spec.search
 
     def set_query_arguments(self, *args: Any) -> None:
         names = self._spec.query_params
@@ -205,6 +209,7 @@ class FunctionalANN(BaseANN):
         return out
 
     def _postprocess(self, out: Any, Q: Any, k: int):
+        """Hook: raw search output -> (dists, ids); record per-run stats."""
         return out
 
     def _run_search(self, Q, k: int):

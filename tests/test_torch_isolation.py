@@ -61,7 +61,8 @@ def no_cuda(monkeypatch):
 
 def _entry_points(tmp_path):
     from repro_torch import resolve_device
-    from repro_torch.ann import bruteforce, hamming, ivf, lsh, rpforest
+    from repro_torch.ann import (bruteforce, graph, hamming, hnsw, ivf, lsh,
+                                 rpforest)
     from repro_torch.quant import train_codec
     from repro_torch.ann.distances import pairwise_rows
     from repro_torch.ann.kmeans import kmeans
@@ -127,7 +128,21 @@ def _entry_points(tmp_path):
         "benchmarks.run": lambda dev: bench_run.main(
             ["--scale", "smoke", "--only", "stream"]
             + ([] if dev is None else ["--device", dev])),
+        "graph.build": lambda dev: graph.build(X, degree=4, device=dev),
+        "hnsw.build": lambda dev: hnsw.build(X, M=4, ef_construction=8,
+                                             device=dev),
+        "benchmarks.run fig8": lambda dev: _figure_bench(dev),
     }
+
+
+def _figure_bench(dev):
+    """The cheapest figure bench through the entry point; an explicit
+    ``cpu`` must run it to its end."""
+    from repro_torch.benchmarks import run as bench_run
+
+    rc = bench_run.main(["--scale", "smoke", "--only", "fig8"]
+                        + ([] if dev is None else ["--device", dev]))
+    assert rc == 0
 
 
 ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
@@ -137,11 +152,14 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "hamming.bruteforce_build", "bitsampling_build", "mih_build",
                 "train_codec", "quantized bruteforce.build",
                 "hamming_topk", "distance_matrix", "embedding_bag",
-                "decode_attention", "benchmarks.run"]
+                "decode_attention", "benchmarks.run", "graph.build",
+                "hnsw.build", "benchmarks.run fig8"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_entry_point_raises_without_cuda(no_cuda, tmp_path, name):
+def test_entry_point_raises_without_cuda(no_cuda, tmp_path, monkeypatch,
+                                        name):
+    monkeypatch.setenv("REPRO_DATA_DIR", str(tmp_path))   # the benches' cache
     fn = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="CUDA"):
         fn(None)

@@ -15,9 +15,9 @@ from repro_torch.core.interface import BaseANN  # noqa: E402
 from repro_torch.core.registry import available, resolve  # noqa: E402
 
 # The reference's algorithms that the port does not have yet (ROADMAP §1):
-# the graph family, the mutable specs and the sharded specs.
-NOT_PORTED = {"HNSW", "KNNGraph", "MutableBruteForce", "MutableIVF",
-              "ShardedBruteForce", "ShardedIVF"}
+# the mutable specs and the sharded specs.
+NOT_PORTED = {"MutableBruteForce", "MutableIVF", "ShardedBruteForce",
+              "ShardedIVF"}
 
 
 def test_port_listings_agree():

@@ -223,7 +223,7 @@ def test_bench_entry_point_runs_as_a_module(tmp_path):
     from repro_torch.benchmarks import run
 
     with pytest.raises(SystemExit):
-        run.main(["--only", "fig4", "--device", "cpu"])
+        run.main(["--only", "serve", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("bench, target", [
