@@ -87,6 +87,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     recall, search time and sweep (``ivf_compare``) and its stages (coarse
     quantizer, pair build, list kernel, merge); the PQ and int8
     BruteForce searches' recall and time (``adc_searches``).
+    Between them and the paths, on the main set's IVF state, the ``tune``
+    phase: ``tune.grid_search`` over all 10^4 queries, n_probes 1-32 x
+    scan {256, pad}, max QPS s.t. recall >= 0.9 (best of 3 passes; each
+    sweep row equal to its static search in ids, recall not falling with
+    n_probes, the chosen point the fastest feasible one; every point
+    logged), then ``launch.tune`` at its default dataset, which must
+    choose a config; and the ``mutate`` phase: MutableIVF (1,024 lists,
+    ``rerank_kernel``) from the first 10^6 - 16,384 rows, 8 times insert
+    1,024 held-out rows / delete the batch of two iterations before /
+    search all queries at n_probes 10, every base row that is a query's
+    nearest neighbour deleted after the first insert (recall within 0.02
+    of the frozen IVF's, against the exact oracle over the live rows; no
+    deleted or unknown id returned; 198 of 200 queries equal to the same
+    state's plain path on the CPU in ids; ms per insert, delete and
+    search; then ``compact()``), and MutableBruteForce on the
+    same churn (1,000 queries equal to the live-row oracle in ids before
+    and after ``compact()``; a state kept from before the last insert
+    gives its earlier answer).
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -116,11 +134,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (n = 2,000), counts set to 0 before and read after: every module
     prints its rows (``FIGURE_ROWS``), and kernels 1 (fig11's
     BruteForce(pallas)) and 3 (fig9's BruteForceHamming(pallas)) launch.
+    Last the ``benches`` phase: ``bench_sweep``, ``bench_tune`` and
+    ``bench_pq`` at ``default`` (n = 20,000), every gate holding and
+    kernel 4 launching in ``bench_pq``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its numbers and its launches, summed over the ANN
-paths of phase 3 (kernels 1-4 and kernel 2's list entry) or on the bench
-path (kernels 5-7).
+paths of phase 3 with the ``tune``, ``mutate`` and ``benches`` phases
+(kernels 1-4 and kernel 2's list entry) or on the bench path (kernels
+5-7).
 Datasets are cached under ``build/data`` beside this script.
 """
 
@@ -1933,6 +1955,284 @@ def phase_bench(torch):
     return launches
 
 
+def live_oracle(torch, X_live, gids, Q, k: int, chunk: int = 250):
+    """Exact (squared L2 [nq, k], global ids [nq, k]) over the live rows:
+    ``D.sq_l2_matrix`` (``torch.matmul``) and a stable sort on the card,
+    no kernel.  ``live_items`` lists the rows in global-id order, so the
+    stable order is the canonical (distance, id) order."""
+    from repro_torch.ann import distances as D
+
+    X = torch.as_tensor(X_live).to("cuda")
+    xsq = torch.sum(X ** 2, dim=1)
+    Qd = torch.as_tensor(np.ascontiguousarray(Q)).to("cuda")
+    gmap = torch.as_tensor(gids.astype(np.int64)).to("cuda")
+    dists, ids = [], []
+    for s in range(0, Qd.shape[0], chunk):
+        d = D.sq_l2_matrix(Qd[s:s + chunk], X, xsq)
+        v, i = torch.sort(d, dim=1, stable=True)
+        dists.append(v[:, :k].cpu())
+        ids.append(gmap[i[:, :k]].cpu())
+    return torch.cat(dists).numpy(), torch.cat(ids).numpy()
+
+
+def sq_recall(d_sq, ids, gt, k: int = K) -> float:
+    """The tuner's recall: each answer's own squared distance, rooted,
+    against the exact k-th L2 distance ``gt`` (``recall_from_arrays``)."""
+    from repro_torch.core.metrics import recall_from_arrays
+
+    return float(np.mean(recall_from_arrays(
+        np.sqrt(np.maximum(d_sq, 0.0)), gt, k, neighbors=ids)))
+
+
+def timed_s(torch, fn):
+    """(result, host seconds) of ``fn()``, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_tune(torch, ds, state):
+    """``tune.grid_search`` on the main set's IVF (1,024 lists,
+    ``rerank_kernel``: kernel 2's list entry) over all 10^4 queries,
+    n_probes 1-32 x scan {256, pad}, max QPS s.t. recall >= 0.9, best of 3
+    timing passes.  Every sweep row must equal its combination's static
+    search (ids bit for bit), recall must not fall as n_probes grows, and
+    the chosen point must be feasible and the fastest feasible one.  Then
+    ``launch.tune`` at its default dataset must choose a config."""
+    from repro_torch import tune
+    from repro_torch.ann import ivf
+    from repro_torch.ann.functional import grid_combos, search_sweep
+    from repro_torch.launch import tune as tune_cli
+
+    t0 = time.perf_counter()
+    grid = {"n_probes": (1, 2, 4, 8, 16, 32),
+            "scan": (256, state.stat("pad"))}
+    Q = torch.as_tensor(ds.test).to("cuda")
+    reset_counters()
+    result = tune.grid_search(state, Q, ds.distances, k=K, knob_grid=grid,
+                              constraint=tune.Constraint.min_recall(0.9),
+                              repetitions=3)
+    launches = read_counters()
+    _, sweep_ids = search_sweep(state, Q, k=K, knob_grid=grid)
+    combos = grid_combos(grid)
+    for row, combo in enumerate(combos):
+        static = ivf.search(state, Q, k=K, **combo)[1]
+        check(torch.equal(sweep_ids[row], static),
+              f"tune: sweep row {combo} differs from the static search")
+    pareto = {id(p) for p in result.pareto}
+    table = [{"params": p.params, "recall": p.recall, "qps": p.qps,
+              "ms_per_query": p.latency * 1e3, "pareto": id(p) in pareto,
+              "chosen": p is result.best} for p in result.points]
+    for row in table:
+        log(json.dumps({"tune_point": row}))
+    for scan in grid["scan"]:
+        rec = [p.recall for p in result.points if p.params["scan"] == scan]
+        check(all(a <= b for a, b in zip(rec, rec[1:])),
+              f"tune: recall falls as n_probes grows at scan {scan}: {rec}")
+    best = result.best
+    check(best is not None and best.recall >= 0.9,
+          f"tune: no feasible point chosen: {table}")
+    check(all(best.qps >= p.qps for p in result.points if p.recall >= 0.9),
+          f"tune: {best.params} is not the fastest feasible point")
+    check(launches["rerank_lists"] > 0,
+          f"tune: kernel 2's list entry never launched: {launches}")
+    t_grid = time.perf_counter() - t0
+    out = ROOT / "build" / "tune.json"
+    cli = tune_cli.main(["--grid", "n_probes=1,2,4,8,16,32",
+                         "scan=32,128,512", "--build", "n_clusters=64",
+                         "--min-recall", "0.9", "--out-json", str(out)])
+    payload = json.loads(out.read_text())
+    check(cli.best is not None and payload["best"] is not None,
+          f"launch.tune chose no config: {payload}")
+    log(json.dumps({"phase": "tune", "chosen": best.params,
+                    "recall": best.recall, "qps": best.qps,
+                    "launches": launches, "grid_seconds": t_grid,
+                    "cli_chosen": payload["best"],
+                    "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+def state_on_cpu(state):
+    """A copy of a (mutable) IndexState with every tensor on the CPU."""
+    from repro_torch.ann.functional import IndexState
+
+    return IndexState(state.algo, state.metric, {
+        k: state_on_cpu(v) if isinstance(v, IndexState)
+        else v.cpu() if hasattr(v, "cpu") else v
+        for k, v in state.arrays.items()}, state.static)
+
+
+def phase_mutate(torch, ds, state):
+    """Streaming mutation at full width on the main set.  MutableIVF
+    (1,024 lists, ``rerank_kernel``) built from the first 10^6 - 16,384
+    rows with a 16,384-slot delta; 8 times: insert 1,024 held-out rows,
+    delete the batch inserted two iterations earlier, search all 10^4
+    queries at n_probes 10; after the first insert, also delete every
+    base row that is some query's true nearest neighbour, so the
+    tombstones mask rows the queries would return.  Its recall against
+    the exact oracle over the live rows must lie within 0.02 of the frozen
+    IVF's (``state``) at n_probes 10; no answer may be a deleted or an
+    unknown id; on 200 queries its ids must equal the same state's plain
+    path on the CPU in at least 198 (each deleted row is its query's
+    nearest, so a kernel that ignored ``row_live`` would differ in
+    nearly all); kernel 2's list entry must launch; then ``compact()``.
+    MutableBruteForce on the same base and churn: 1,000 queries equal the
+    live-row oracle in ids before and after ``compact()``, and a state
+    kept from before the last insert still gives its earlier answer."""
+    from repro_torch import mutate
+    from repro_torch.ann import ivf
+
+    t_phase = time.perf_counter()
+    cap, batch, iters, n_probes, n_cpu = 16_384, 1_024, 8, 10, 200
+    n0 = ds.n - cap
+    base, held = ds.train[:n0], ds.train[n0:]
+    nearest = np.unique(ds.neighbors[:, 0])
+    dead_main = nearest[nearest < n0].astype(np.int32)
+    Q = torch.as_tensor(ds.test).to("cuda")
+    fd, fi = ivf.search(state, Q, k=K, n_probes=n_probes)
+    frozen = sq_recall(fd.cpu().numpy(), fi.cpu().numpy(), ds.distances)
+
+    def churn(st, search, label, probe=None):
+        """The churn loop; returns the last state and, with ``probe``,
+        the state before the last insert with ``probe``'s answer on it."""
+        inserted, times, kept = [], {"insert": [], "delete": [],
+                                     "delete_main": [], "search": []}, None
+        for it in range(iters):
+            if it == iters - 1 and probe is not None:
+                kept = (st, probe(st))
+            (st, new_ids), dt = timed_s(torch, lambda: mutate.insert(
+                st, held[it * batch:(it + 1) * batch]))
+            times["insert"].append(dt)
+            inserted.append(new_ids)
+            if it == 0:
+                st, dt = timed_s(torch, lambda: mutate.delete(st, dead_main))
+                times["delete_main"].append(dt)
+            if len(inserted) > 2:
+                st, dt = timed_s(torch, lambda: mutate.delete(
+                    st, inserted.pop(0)))
+                times["delete"].append(dt)
+            if search is not None:
+                _, dt = timed_s(torch, lambda: search(st))
+                times["search"].append(dt)
+        ms = {k: [t * 1e3 for t in v] for k, v in times.items()}
+        log(json.dumps({"phase": f"mutate_{label}_churn", "ms": ms,
+                        "delta_fraction": mutate.delta_fraction(st),
+                        "live": mutate.live_count(st),
+                        "deleted_main": int(dead_main.size)}))
+        return st, kept
+
+    # MutableIVF
+    reset_counters()
+    mst, t_build = timed_s(torch, lambda: mutate.IVF_SPEC.build(
+        base, metric="euclidean", n_clusters=1024, rerank_kernel=True,
+        delta_capacity=cap, device="cuda"))
+
+    def ivf_search(st):
+        return mutate.IVF_SPEC.search(st, Q, k=K, n_probes=n_probes)
+
+    mst, _ = churn(mst, ivf_search, "ivf")
+    launches = read_counters()
+    gids, X_live = mutate.live_items(mst)
+    od = np.sqrt(np.maximum(live_oracle(torch, X_live, gids, ds.test,
+                                        K)[0], 0.0))
+    d, i = ivf_search(mst)
+    d, i = d.cpu().numpy(), i.cpu().numpy()
+    churned = sq_recall(d, i, od)
+    check(np.isin(i[i >= 0], gids).all() and not np.isin(i, dead_main).any(),
+          "mutate: MutableIVF returned a deleted or unknown id")
+    wd, wi = mutate.IVF_SPEC.search(state_on_cpu(mst), ds.test[:n_cpu], k=K,
+                                    n_probes=n_probes)
+    same = (wi.numpy() == i[:n_cpu]).all(axis=1)
+    log(json.dumps({"phase": "mutate_ivf_vs_cpu", "queries": n_cpu,
+                    "ids_equal": int(same.sum()),
+                    "max_abs_dist_diff": float(np.abs(
+                        wd.numpy() - d[:n_cpu])[same].max(initial=0.0))}))
+    check(int(same.sum()) >= n_cpu - 2,
+          f"mutate: MutableIVF on the card differs from its plain path on "
+          f"the CPU in {n_cpu - int(same.sum())} of {n_cpu} queries")
+    cst, t_compact = timed_s(torch, lambda: mutate.compact(mst))
+    d, i = ivf_search(cst)
+    compacted = sq_recall(d.cpu().numpy(), i.cpu().numpy(), od)
+    log(json.dumps({"phase": "mutate_ivf", "build_s": t_build,
+                    "frozen_recall": frozen, "churn_recall": churned,
+                    "compact_s": t_compact, "compact_recall": compacted,
+                    "launches": launches}))
+    check(abs(churned - frozen) <= 0.02,
+          f"mutate: MutableIVF recall {churned} is not within 0.02 of "
+          f"frozen IVF's {frozen}")
+    check(launches["rerank_lists"] > 0,
+          f"mutate: kernel 2's list entry never launched: {launches}")
+    del mst, cst
+    torch.cuda.empty_cache()
+
+    # MutableBruteForce: ids equal the live-row oracle
+    Qb = ds.test[:1000]
+
+    def bf_search(st, chunk=250):
+        return torch.cat([mutate.BRUTEFORCE_SPEC.search(
+            st, Qb[s:s + chunk], k=K)[1] for s in range(0, 1000, chunk)])
+
+    bst, t_build_bf = timed_s(torch, lambda: mutate.BRUTEFORCE_SPEC.build(
+        base, metric="euclidean", delta_capacity=cap, device="cuda"))
+    bst, (kept, kept_ids) = churn(bst, None, "bruteforce", probe=bf_search)
+    gids, X_live = mutate.live_items(bst)
+    _, want = live_oracle(torch, X_live, gids, Qb, K)
+    got = bf_search(bst).cpu().numpy()
+    check(np.array_equal(got, want),
+          f"mutate: MutableBruteForce differs from the live-row oracle in "
+          f"{int((got != want).any(axis=1).sum())} of 1000 queries")
+    cbst, t_compact_bf = timed_s(torch, lambda: mutate.compact(bst))
+    got = bf_search(cbst).cpu().numpy()
+    check(np.array_equal(got, want),
+          "mutate: MutableBruteForce after compact() differs from the "
+          "live-row oracle")
+    check(torch.equal(bf_search(kept), kept_ids),
+          "mutate: a state kept from before the last insert changed its "
+          "answer")
+    log(json.dumps({"phase": "mutate_bruteforce", "build_s": t_build_bf,
+                    "compact_s": t_compact_bf, "oracle_equal": 1000,
+                    "seconds": time.perf_counter() - t_phase}))
+    return launches
+
+
+def phase_benches(torch):
+    """The sweep / tuner / compressed benches at ``default`` scale
+    (n = 20,000) on the card, each with the launch counts set to 0 before
+    it and read after.  Every gate of each must hold (the modules assert
+    them), and kernel 4 must launch in ``bench_pq``."""
+    from repro_torch.benchmarks import bench_pq, bench_sweep, bench_tune
+    from repro_torch.benchmarks.common import write_bench_json
+
+    out = ROOT / "build" / "benches"
+    total, per = {}, {}
+    t0 = time.perf_counter()
+    for name, mod in (("sweep", bench_sweep), ("tune", bench_tune),
+                      ("pq", bench_pq)):
+        t_bench = time.perf_counter()
+        reset_counters()
+        extra = None
+        if name == "pq":
+            rows, extra = mod.run_with_summary("default", "cuda")
+        else:
+            rows = mod.run("default", "cuda")
+        launches = read_counters()
+        write_bench_json(name, rows, scale="default", extra=extra,
+                         out_dir=str(out))
+        for row in rows:
+            log(row.csv())
+        per[name] = {"launches": {k: v for k, v in launches.items() if v},
+                     "seconds": time.perf_counter() - t_bench}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    log(json.dumps({"phase": "benches", "per_bench": per,
+                    "seconds": time.perf_counter() - t0}))
+    check(per["pq"]["launches"].get("adc_scan", 0) > 0,
+          f"bench_pq: kernel 4 never launched: {per['pq']}")
+    return total
+
+
 def config():
     """Every definition the paths run, by point type and metric; a path
     picks its own with ``algorithms=``."""
@@ -2375,10 +2675,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.benchmarks.common import PEAKS, form_factor
 
-    name = torch.cuda.get_device_name(0)
-    peaks = PEAKS[form_factor(name)]
-    log(json.dumps({"phase": "device", "name": name,
-                    "form_factor": form_factor(name),
+    card = torch.cuda.get_device_name(0)
+    peaks = PEAKS[form_factor(card)]
+    log(json.dumps({"phase": "device", "name": card,
+                    "form_factor": form_factor(card),
                     "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 
@@ -2408,6 +2708,8 @@ def main() -> int:
     phase_ivf_compare(torch, MAIN, ds, state, before)
     phase_breakdown(torch, state, ds.test)
     routes = phase_routes(torch, state, ds.test)
+    tune_launches = phase_tune(torch, ds, state)
+    mutate_launches = phase_mutate(torch, ds, state)
     del state
     torch.cuda.empty_cache()
     if before is not None:
@@ -2421,6 +2723,9 @@ def main() -> int:
     # 3. the paths, through the runner; ``paths`` sums each kernel's
     # launches over them (single-query runs apart)
     paths = {}
+    for launches in (tune_launches, mutate_launches):
+        for kernel, count in launches.items():
+            paths[kernel] = paths.get(kernel, 0) + count
 
     def path(*args):
         launches, rows = run_path(torch, *args)
@@ -2466,6 +2771,8 @@ def main() -> int:
     # 4. the bench path, then the figure path
     bench_launches = phase_bench(torch)
     phase_figures(torch)
+    for kernel, count in phase_benches(torch).items():
+        paths[kernel] = paths.get(kernel, 0) + count
 
     no_library = ("no single PyTorch call computes a fused distance + "
                   "(unique) top-k")
@@ -2542,7 +2849,7 @@ def main() -> int:
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

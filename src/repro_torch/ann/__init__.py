@@ -2,8 +2,9 @@
 
 Importing this package registers every ported algorithm with the core
 registry.  Ported so far: BruteForce, IVF, RPForest, HyperplaneLSH, E2LSH,
-BruteForceHamming, BitsamplingAnnoy, MultiIndexHashing, KNNGraph and
-HNSW.
+BruteForceHamming, BitsamplingAnnoy, MultiIndexHashing, KNNGraph, HNSW,
+and the mutable variants MutableBruteForce and MutableIVF
+(:mod:`repro_torch.mutate`).
 """
 
 from repro_torch.ann import distances, topk
@@ -15,6 +16,11 @@ from repro_torch.ann.hamming import (BitsamplingAnnoy, BruteForceHamming,
                                      MultiIndexHashing)
 from repro_torch.ann.graph import KNNGraph
 from repro_torch.ann.hnsw import HNSW
+# the mutable (delta-buffered) variants live outside this package but
+# register through the same registries; a plain module import (no name
+# access -- repro_torch.mutate imports back into this package) keeps the
+# cycle resolvable from either entry point
+import repro_torch.mutate  # noqa: E402,F401
 
 __all__ = [
     "distances", "topk", "BruteForce", "IVF", "RPForest", "HyperplaneLSH",

@@ -92,6 +92,29 @@ def build(X: np.ndarray, *, metric: str = "euclidean",
     return IndexState("BruteForce", metric, arrays, static)
 
 
+def exact_angular(state: IndexState) -> IndexState:
+    """``state`` taking its angular distances with float64 dots rounded
+    once (``distances.angular_matrix_exact``): a pair's distance then
+    depends on the matrix it sits in only at a float32 rounding boundary
+    (see there).  A mutable index's BruteForce
+    main uses it, so copies of a row in the main corpus and in the delta
+    tie exactly.  No other metric changes."""
+    return IndexState(state.algo, state.metric, state.arrays,
+                      {**state.static, "exact_angular": True})
+
+
+def distance_matrix(state: IndexState, Q, X, xsq=None) -> torch.Tensor:
+    """[b, m] distances of canonical queries ``Q`` to rows ``X`` by this
+    index's expression (``xsq``: the rows' squared norms, euclidean)."""
+    if state.metric == "euclidean":
+        return D.sq_l2_matrix(Q, X, xsq)
+    if state.metric == "angular":
+        if state.static.get("exact_angular", False):
+            return D.angular_matrix_exact(Q, X)
+        return D.angular_matrix(Q, X, normalized=False)
+    return D.hamming_matrix(Q, X)
+
+
 def search(state: IndexState, Q, *, k: int, n_cand=None, max_cand=None,
            live=None, id_map=None):
     """Exact (dists [b, kk], ids [b, kk]) with kk = min(k, n).  The pallas
@@ -129,12 +152,7 @@ def search(state: IndexState, Q, *, k: int, n_cand=None, max_cand=None,
         from repro_torch.kernels.distance_topk import stream_topk
 
         return stream_topk(Q, state["X"], k=k, metric=metric)
-    if metric == "euclidean":
-        d = D.sq_l2_matrix(Q, state["X"], state["xsq"])
-    elif metric == "angular":
-        d = D.angular_matrix(Q, state["X"], normalized=False)
-    else:
-        d = D.hamming_matrix(Q, state["X"])
+    d = distance_matrix(state, Q, state["X"], state.arrays.get("xsq"))
     if not masked:
         vals, idx = topk_smallest(d, k)
         return vals, idx.to(torch.int32)

@@ -51,6 +51,21 @@ def angular_matrix(Q: torch.Tensor, X: torch.Tensor,
     return 1.0 - Q @ X.T
 
 
+def angular_matrix_exact(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """:func:`angular_matrix` (``normalized=False``) with each dot product
+    accumulated in float64 and rounded once to float32: the products of
+    float32 values are exact in float64, so a pair's distance depends on
+    where it sits in the matrix, or on the matrix's shape, only where the
+    float64 sum lies within its own rounding error of a float32 rounding
+    boundary.  A mutable index's BruteForce main uses it
+    (``bruteforce.exact_angular``), so that exact copies of a row, scanned
+    in different matrices, tie exactly."""
+    Q = _normalize(Q.to(torch.float32))
+    X = _normalize(X.to(torch.float32))
+    dot = (Q.to(torch.float64) @ X.to(torch.float64).T).to(torch.float32)
+    return 1.0 - dot
+
+
 def hamming_matrix(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Popcount distances between packed 32-bit codes; returns float32."""
     x = torch.bitwise_xor(Q[:, None, :], X[None, :, :])

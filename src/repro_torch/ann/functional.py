@@ -10,9 +10,9 @@ plus a static dict of hyperparameters.  PyTorch runs eagerly, so there is
 no trace to cache: :func:`bind_search` only pins the static knobs, and the
 *traced* knobs of the reference (``n_probes`` under a ``max_probes`` cap,
 ``scan`` under ``max_scan``) arrive as 0-d tensors from which the search
-builds the same in-window masks.  ``search_sweep_points`` (the reference's
-vmapped grid path) is a loop over the points that returns the same
-``[S, b, kk]`` stack.
+builds the same in-window masks.  ``search_sweep_points`` and
+``search_sweep`` (the reference's vmapped grid paths) loop over the points
+and return the same ``[S, b, kk]`` stack.
 """
 
 from __future__ import annotations
@@ -58,6 +58,12 @@ class IndexState:
     def stat(self, key: str):
         return self.static[key]
 
+    def replace(self, **arrays) -> "IndexState":
+        """A new state with ``arrays`` swapped in; this one is unchanged."""
+        merged = dict(self.arrays)
+        merged.update(arrays)
+        return IndexState(self.algo, self.metric, merged, self.static)
+
     @property
     def device(self) -> torch.device:
         for a in self.arrays.values():
@@ -66,12 +72,17 @@ class IndexState:
         return torch.device("cpu")
 
     def nbytes(self) -> int:
-        """Bytes of every tensor, those inside a tuple or list included
-        (HNSW's ``layers``), as the reference counts every tree leaf."""
-        leaves = [leaf for a in self.arrays.values()
-                  for leaf in (a if isinstance(a, (tuple, list)) else (a,))]
-        return int(sum(a.numel() * a.element_size()
-                       for a in leaves if torch.is_tensor(a)))
+        """Bytes of every tensor, those inside a tuple or list (HNSW's
+        ``layers``) or a nested state (a mutable index's ``main``)
+        included, as the reference counts every tree leaf."""
+        total = 0
+        for a in self.arrays.values():
+            for leaf in (a if isinstance(a, (tuple, list)) else (a,)):
+                if isinstance(leaf, IndexState):
+                    total += leaf.nbytes()
+                elif torch.is_tensor(leaf):
+                    total += leaf.numel() * leaf.element_size()
+        return total
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (f"IndexState({self.algo!r}, {self.metric!r}, "
@@ -193,6 +204,22 @@ def available_functional() -> Dict[str, FunctionalSpec]:
     return dict(FUNCTIONAL)
 
 
+def grid_combos(knob_grid: Mapping[str, Sequence]) -> list:
+    """Expand a knob grid into its cartesian combinations.
+
+    Returns a list of ``{knob: value}`` dicts in row order of
+    :func:`search_sweep` -- knobs iterate in ``knob_grid`` insertion order,
+    the LAST knob varying fastest (C order, like ``itertools.product``).
+    """
+    import itertools
+
+    names = list(knob_grid)
+    axes = [list(knob_grid[n]) for n in names]
+    if any(len(a) == 0 for a in axes):
+        raise ValueError("every knob in knob_grid needs at least one value")
+    return [dict(zip(names, combo)) for combo in itertools.product(*axes)]
+
+
 def search_sweep_points(state: IndexState, Q, *, k: int,
                         points: Sequence[Mapping[str, Any]],
                         **query_params) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -243,6 +270,22 @@ def search_sweep_points(state: IndexState, Q, *, k: int,
             torch.stack([o[1] for o in outs]))
 
 
+def search_sweep(state: IndexState, Q, *, k: int,
+                 knob_grid: Mapping[str, Sequence],
+                 **query_params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate a cartesian query-knob grid: :func:`search_sweep_points`
+    over :func:`grid_combos`.
+
+    ``knob_grid`` maps one or more traced-capable knobs to the values to
+    sweep; each knob's ``max_*`` cap is pinned to ``max(values)`` unless
+    passed in ``query_params``.  Returns ``(dists [S, b, kk], ids [S, b,
+    kk])`` with ``S = prod(len(values_i))``; row ``i`` is what the static
+    path returns for combination ``i`` in :func:`grid_combos` order.
+    """
+    return search_sweep_points(state, Q, k=k, points=grid_combos(knob_grid),
+                               **query_params)
+
+
 # --------------------------------------------------------------------------
 # shared build helpers
 # --------------------------------------------------------------------------
@@ -256,6 +299,15 @@ def prepare_points(X: np.ndarray, metric: str) -> np.ndarray:
     if metric == "angular":
         X = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-12)
     return X
+
+
+def queries_on(Q, metric: str, device) -> torch.Tensor:
+    """A query batch moved to ``device`` as given, once, before a timed
+    loop: no canonicalisation (hamming codes keep their bits in int32)."""
+    if metric == "hamming":
+        return words_to_tensor(Q, device)
+    Q = Q if torch.is_tensor(Q) else torch.as_tensor(np.ascontiguousarray(Q))
+    return Q.to(device)
 
 
 def prepare_queries(Q, metric: str, device) -> torch.Tensor:

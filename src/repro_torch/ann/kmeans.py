@@ -4,10 +4,14 @@ quantizer behind IVF, as ``repro.ann.kmeans``.
 The seeding is the reference's numpy code, draw for draw, so both packages
 start from the same centers.  The Lloyd steps run on ``device``: a blocked
 assignment (``torch.argmin``, first index on ties, like ``jnp.argmin``) and
-an update through ``index_add_``.  On CUDA ``index_add_`` sums with
-atomics, so the order of the sums -- and the last bit of a center -- can
-change from run to run; a point whose two nearest centers are that close
-can change cluster.
+an update that sums each cluster's points in index order within each block
+of the assignment's ``block`` points (``torch.segment_reduce`` over the
+block sorted stably by cluster), then the blocks' sums in block order.
+That order is fixed, so a center is the same bits on every run and on
+every device (below ``block`` points, the sequential sum's);
+``index_add_`` on CUDA sums with atomics, in an order that changes from
+run to run, so two builds of one corpus could differ.  A block's sorted
+copy is the only copy of the points the update makes.
 """
 
 from __future__ import annotations
@@ -40,13 +44,18 @@ def _assign(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.argmin(D.sq_l2_matrix(X, centers), dim=1)
 
 
-def _update(X: torch.Tensor, assign: torch.Tensor, n_clusters: int):
-    sums = torch.zeros((n_clusters, X.shape[1]), dtype=torch.float32,
-                       device=X.device).index_add_(0, assign, X)
-    counts = torch.zeros(n_clusters, dtype=torch.float32,
-                         device=X.device).index_add_(
-        0, assign, torch.ones(X.shape[0], dtype=torch.float32,
-                              device=X.device))
+def _update(X: torch.Tensor, assign: torch.Tensor, n_clusters: int,
+            block: int):
+    sums = None
+    for s in range(0, X.shape[0], block):
+        a = assign[s:s + block]
+        order = torch.sort(a, stable=True).indices
+        part = torch.segment_reduce(
+            X[s:s + block][order], "sum",
+            lengths=torch.bincount(a, minlength=n_clusters), axis=0,
+            unsafe=True)
+        sums = part if sums is None else sums + part
+    counts = torch.bincount(assign, minlength=n_clusters).to(torch.float32)
     return sums / torch.clamp_min(counts, 1.0)[:, None], counts
 
 
@@ -71,7 +80,7 @@ def kmeans(
 
     for _ in range(n_iters):
         assign = assign_all()
-        new_centers, counts = _update(Xt, assign, n_clusters)
+        new_centers, counts = _update(Xt, assign, n_clusters, block)
         # keep empty clusters where they were
         centers = torch.where(counts[:, None] > 0, new_centers, centers)
     assign = assign_all()

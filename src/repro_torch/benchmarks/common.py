@@ -22,6 +22,8 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch import sync
+
 # NVIDIA H100 data sheet, dense, without tensor cores for fp32:
 # (fp32 FLOP/s, memory bytes/s) per form factor
 PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
@@ -85,6 +87,22 @@ def timed(fn: Callable, *args, n: int = 3, warmup: int = 1,
             t0 = time.perf_counter()
             fn(*args)
             best = min(best, (time.perf_counter() - t0) * 1e6)
+    return best
+
+
+def best_s(fn: Callable, device, n: int = 5, warmup: int = 2) -> float:
+    """Best-of-n host seconds of ``fn()``, each call waited for with
+    :func:`repro_torch.sync` (the reference benches' ``block_until_ready``
+    timing, host launches included)."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        best = min(best, time.perf_counter() - t0)
     return best
 
 

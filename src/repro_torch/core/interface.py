@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, sync
-from repro_torch.bits import words_to_tensor
 
 
 class BaseANN(abc.ABC):
@@ -224,10 +223,11 @@ class FunctionalANN(BaseANN):
         return ids[0].cpu().numpy()
 
     def batch_query(self, Q: np.ndarray, k: int) -> None:
+        from repro_torch.ann.functional import queries_on
+
         block = max(1, int(self._batch_block_size(k)))
         dev = self._state.device
-        Qt = words_to_tensor(Q, dev) if self.metric == "hamming" \
-            else torch.as_tensor(np.asarray(Q)).to(dev)
+        Qt = queries_on(Q, self.metric, dev)
         outs = []
         for s in range(0, Q.shape[0], block):
             _, ids = self._run_search(Qt[s:s + block], k)

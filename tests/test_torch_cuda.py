@@ -1034,6 +1034,73 @@ def test_ivf_search_takes_the_list_entry(cuda):
     torch.testing.assert_close(d.cpu(), cpu[0], rtol=1e-5, atol=1e-4)
 
 
+def test_kmeans_and_pq_training_repeat_bit_for_bit(cuda):
+    """Two builds of one corpus on the card give the same centers,
+    assignment and PQ codes bit for bit (each cluster summed in index
+    order), and the centers equal the CPU's."""
+    from repro_torch.ann.kmeans import kmeans
+    from repro_torch.quant import train_codec
+
+    X = np.random.default_rng(3).standard_normal((20000, 32)) \
+        .astype(np.float32)
+    a = kmeans(X, 64, device=cuda)
+    b = kmeans(X, 64, device=cuda)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    c = kmeans(X, 64, device="cpu")
+    np.testing.assert_array_equal(a[0], c[0])
+    np.testing.assert_array_equal(a[1], c[1])
+    pq = {"pq": {"m": 8, "bits": 8}}
+    first, _ = train_codec(X, pq, metric="euclidean", device=cuda)
+    again, _ = train_codec(X, pq, metric="euclidean", device=cuda)
+    assert torch.equal(first["codes"], again["codes"])
+    assert torch.equal(first["codebooks"], again["codebooks"])
+
+
+def _state_on(state, device):
+    """A (mutable) IndexState with every tensor moved to ``device``; the
+    host-side counters stay where they are."""
+    from repro_torch.ann.functional import IndexState
+
+    def move(name, a):
+        if isinstance(a, IndexState):
+            return _state_on(a, device)
+        if name in ("count", "next_id") or not torch.is_tensor(a):
+            return a
+        return a.to(device)
+
+    return IndexState(state.algo, state.metric,
+                      {k: move(k, v) for k, v in state.arrays.items()},
+                      state.static)
+
+
+def test_mutable_ivf_list_entry_with_row_live_matches_plain(cuda):
+    """MutableIVF (``rerank_kernel``) after inserts and deletes: its main
+    search is kernel 2's list entry with the tombstones as ``row_live``,
+    and so is its delta scan (the filled slots as one list); on
+    integer-valued rows it equals the same state's plain path on the CPU
+    bit for bit, ids and distances."""
+    from repro_torch import mutate
+    from repro_torch.kernels.rerank_topk import rerank_lists_kernel
+
+    rng = np.random.default_rng(23)
+    X = rng.integers(-4, 5, (3000, 24)).astype(np.float32)
+    Q = rng.integers(-4, 5, (70, 24)).astype(np.float32)
+    st = mutate.IVF_SPEC.build(X[:2800], n_clusters=30, rerank_kernel=True,
+                               delta_capacity=256)
+    st, ids = mutate.insert(st, X[2800:])
+    st = mutate.delete(st, np.concatenate([np.arange(0, 2800, 7),
+                                           ids[::5]]))
+    before = rerank_lists_kernel.launches
+    for n_probes in (1, 6, 30):
+        d, i = mutate.IVF_SPEC.search(st, Q, k=10, n_probes=n_probes)
+        wd, wi = mutate.IVF_SPEC.search(_state_on(st, "cpu"), Q, k=10,
+                                        n_probes=n_probes)
+        assert torch.equal(i.cpu(), wi)
+        torch.testing.assert_close(d.cpu(), wd, rtol=0, atol=0)
+    assert rerank_lists_kernel.launches == before + 6
+
+
 @pytest.mark.parametrize("metric,d", [("euclidean", 18), ("euclidean", 100),
                                       ("angular", 128), ("angular", 18),
                                       ("hamming", 4), ("hamming", 8),

@@ -33,7 +33,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert "repro_torch.ann.ivf" in mods and "repro_torch.core.runner" in mods
     assert {"repro_torch.benchmarks.run", "repro_torch.kernels.distance.ops",
             "repro_torch.kernels.embedbag.ops",
-            "repro_torch.kernels.decode_attn.ops"} <= set(mods)
+            "repro_torch.kernels.decode_attn.ops", "repro_torch.tune",
+            "repro_torch.tune.tuner", "repro_torch.launch.knobs",
+            "repro_torch.launch.tune", "repro_torch.mutate",
+            "repro_torch.mutate.delta", "repro_torch.benchmarks.bench_sweep",
+            "repro_torch.benchmarks.bench_tune",
+            "repro_torch.benchmarks.bench_pq",
+            "repro_torch.benchmarks.sweep_rerank_block",
+            "repro_torch.benchmarks.sweep_churn",
+            "repro_torch.benchmarks.sweep_build"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -75,6 +83,9 @@ def _entry_points(tmp_path):
     from repro_torch.kernels.distance import distance_matrix
     from repro_torch.kernels.embedbag import embedding_bag
     from repro_torch.kernels.hamming import hamming_topk
+    from repro_torch import mutate
+    from repro_torch.benchmarks import bench_sweep
+    from repro_torch.launch import tune as tune_cli
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -132,6 +143,16 @@ def _entry_points(tmp_path):
         "hnsw.build": lambda dev: hnsw.build(X, M=4, ef_construction=8,
                                              device=dev),
         "benchmarks.run fig8": lambda dev: _figure_bench(dev),
+        "MutableBruteForce build": lambda dev: mutate.BRUTEFORCE_SPEC.build(
+            X, delta_capacity=4, device=dev),
+        "MutableIVF build": lambda dev: mutate.IVF_SPEC.build(
+            X, n_clusters=4, delta_capacity=4, device=dev),
+        "launch.tune": lambda dev: tune_cli.main(
+            ["--dataset", "blobs-euclidean-300", "--build", "n_clusters=4",
+             "--grid", "n_probes=1,2", "--nq", "8", "--repetitions", "1",
+             "--min-recall", "0.1"]
+            + ([] if dev is None else ["--device", dev])),
+        "bench_sweep": lambda dev: bench_sweep.run("smoke", dev),
     }
 
 
@@ -153,7 +174,9 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "train_codec", "quantized bruteforce.build",
                 "hamming_topk", "distance_matrix", "embedding_bag",
                 "decode_attention", "benchmarks.run", "graph.build",
-                "hnsw.build", "benchmarks.run fig8"]
+                "hnsw.build", "benchmarks.run fig8",
+                "MutableBruteForce build", "MutableIVF build", "launch.tune",
+                "bench_sweep"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -189,3 +212,15 @@ def test_embedbag_sweep_refuses_without_cuda(no_cuda):
     assert "repro_torch.benchmarks.sweep_embedbag_plan" in _modules()
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         sweep_embedbag_plan.main()
+
+
+@pytest.mark.parametrize("name", ["sweep_rerank_block", "sweep_churn",
+                                  "sweep_build"])
+def test_card_sweeps_refuse_without_cuda(no_cuda, name):
+    """The rerank-block, churn and build sweeps measure the card: without
+    one they stop before building anything."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        mod.main()

@@ -15,9 +15,8 @@ from repro_torch.core.interface import BaseANN  # noqa: E402
 from repro_torch.core.registry import available, resolve  # noqa: E402
 
 # The reference's algorithms that the port does not have yet (ROADMAP §1):
-# the mutable specs and the sharded specs.
-NOT_PORTED = {"MutableBruteForce", "MutableIVF", "ShardedBruteForce",
-              "ShardedIVF"}
+# the sharded specs.
+NOT_PORTED = {"ShardedBruteForce", "ShardedIVF"}
 
 
 def test_port_listings_agree():
