@@ -104,7 +104,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     search; then ``compact()``), and MutableBruteForce on the
     same churn (1,000 queries equal to the live-row oracle in ids before
     and after ``compact()``; a state kept from before the last insert
-    gives its earlier answer).
+    gives its earlier answer); then the ``serve`` phase on the same IVF
+    state: ``repro_torch.serve.Engine`` in micro-batches of 256 over IVF
+    (n_probes 10 under max_probes 32) and BruteForce(pallas), each equal
+    to its direct search over the 10^4 queries bit for bit (the Engine
+    takes them from the host, as a caller sends them), one IVF
+    micro-batch traced (device time, idle share); 1,000
+    ``submit()``s equal to ``search()``'s rows, a per-request n_probes 4
+    equal to the static search at 4, n_probes 33 refused, an expired
+    request answered with DeadlineExceeded beside answered ones; the IVF
+    engine's checkpoint saved and loaded bit for bit (a save cut by an
+    injected truncation refused on load); and an Engine over MutableIVF
+    (the same rows, one insert of 1,024 rows, every query's nearest base
+    row deleted) against the live-row oracle before, during and after a
+    background compaction, a failed one (an injected CompactionError)
+    leaving its answers as they were.
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -134,15 +148,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (n = 2,000), counts set to 0 before and read after: every module
     prints its rows (``FIGURE_ROWS``), and kernels 1 (fig11's
     BruteForce(pallas)) and 3 (fig9's BruteForceHamming(pallas)) launch.
-    Last the ``benches`` phase: ``bench_sweep``, ``bench_tune`` and
-    ``bench_pq`` at ``default`` (n = 20,000), every gate holding and
-    kernel 4 launching in ``bench_pq``.
+    Last the ``benches`` phase: ``bench_sweep``, ``bench_tune``,
+    ``bench_pq`` and ``bench_engine`` at ``default`` (n = 20,000), every
+    gate holding and kernel 4 launching in ``bench_pq``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its numbers and its launches, summed over the ANN
-paths of phase 3 with the ``tune``, ``mutate`` and ``benches`` phases
-(kernels 1-4 and kernel 2's list entry) or on the bench path (kernels
-5-7).
+paths of phase 3 with the ``tune``, ``mutate``, ``serve`` and ``benches``
+phases (kernels 1-4 and kernel 2's list entry) or on the bench path
+(kernels 5-7).
 Datasets are cached under ``build/data`` beside this script.
 """
 
@@ -2197,19 +2211,231 @@ def phase_mutate(torch, ds, state):
     return launches
 
 
+def phase_serve(torch, ds, state):
+    """The synchronous Engine at full width on the main set, launch
+    counts set to 0 before and read after (kernels 1 and 2's list entry
+    must launch):
+      * micro-batches of 256: an Engine over the IVF state (n_probes 10
+        under max_probes 32, traced) and one over BruteForce(pallas)
+        answer the 10^4 queries as the direct search does, ids and
+        distances bit for bit; ms per micro-batch and QPS beside the
+        direct search's; one IVF micro-batch of 256 under
+        ``torch.profiler`` (its device time and the idle share of its
+        window);
+      * requests: 1,000 single queries through ``submit()`` equal
+        ``search()``'s rows; 100 at a per-request n_probes 4 equal the
+        static search at 4; n_probes 33 is refused at ``submit()``; an
+        already expired request gets DeadlineExceeded and the rest of its
+        micro-batch is answered;
+      * checkpoint: ``save()`` and ``Engine.load()`` of the IVF engine
+        answer bit for bit (seconds and bytes logged); a save cut by an
+        injected truncation raises CheckpointError on load;
+      * MutableIVF (the same rows, 1,024 lists, the list entry) under an
+        Engine: one insert of 1,024 rows, every query's nearest base row
+        deleted; recall against the live-row oracle within 0.02 of the
+        frozen IVF engine's and no deleted or unknown id, before and after
+        ``compact(background=True)`` runs beside 10 ``search()`` calls; a
+        background compaction under an injected CompactionError leaves
+        the answers as they were and counts one failure."""
+    from repro_torch import mutate
+    from repro_torch.ann import bruteforce, ivf
+    from repro_torch.serve import (CheckpointError, CompactionError,
+                                   DeadlineExceeded, Engine, FaultPlan,
+                                   faults)
+
+    t_phase = time.perf_counter()
+    reset_counters()
+    Q = torch.as_tensor(ds.test).to("cuda")
+    qp = {"n_probes": 10, "max_probes": 32}
+
+    def vs_direct(label, eng, direct):
+        """Engine.search of the host's queries, as a caller sends them,
+        against the direct search of the queries on the card: bitwise,
+        timed."""
+        eng.search(ds.test[:256])
+        direct()
+        before = dict(eng.stats)
+        (d, i), t_eng = timed_s(torch, lambda: eng.search(ds.test))
+        (wd, wi), t_direct = timed_s(torch, direct)
+        wd, wi = wd.cpu().numpy(), wi.cpu().numpy()
+        differ = int(((i != wi) | (d != wd)).any(axis=1).sum())
+        batches = eng.stats["batches"] - before["batches"]
+        searched = eng.stats["device_time_s"] - before["device_time_s"]
+        rec = {"engine_s": t_eng, "direct_s": t_direct,
+               "ms_per_micro_batch": t_eng * 1e3 / batches,
+               "synced_search_ms_per_micro_batch": searched * 1e3 / batches,
+               "engine_qps": Q.shape[0] / t_eng,
+               "direct_qps": Q.shape[0] / t_direct,
+               "queries_differing": differ, "stats": eng.stats}
+        log(json.dumps({"phase": f"serve_{label}", **rec}))
+        check(differ == 0, f"serve: {label} Engine.search differs from the "
+                           f"direct search in {differ} queries")
+        return d, i
+
+    # 1. micro-batched search, IVF and BruteForce(pallas)
+    eng = Engine(state, batch_size=256, query_params=qp)
+    check(eng.traced_params == ("n_probes",),
+          f"serve: n_probes not traced under max_probes: {eng.traced_params}")
+    d_ivf, i_ivf = vs_direct("ivf", eng, lambda: ivf.search(
+        state, Q, k=K, **qp))
+    frozen = sq_recall(d_ivf, i_ivf, ds.distances)
+    by_name, idle, window_ms, n_device = profile_call(
+        torch, lambda: eng.search(ds.test[:256]), count=True)
+    log(json.dumps({"phase": "serve_ivf_trace", "window_ms": window_ms,
+                    "idle_share": idle,
+                    "device_ms": sum(by_name.values()),
+                    "device_kernels_and_copies": n_device,
+                    "by_name_ms": by_name}))
+    bstate = bruteforce.build(ds.train, backend="pallas", device="cuda")
+    vs_direct("bruteforce", Engine(bstate, batch_size=256),
+              lambda: bruteforce.search(bstate, Q, k=K))
+    del bstate
+
+    # 2. requests
+    t0 = time.perf_counter()
+    tickets = [eng.submit(ds.test[j]) for j in range(1000)]
+    eng.flush()
+    t_submit = time.perf_counter() - t0
+    got = np.stack([t.result()[1] for t in tickets])
+    got_d = np.stack([t.result()[0] for t in tickets])
+    check(np.array_equal(got, i_ivf[:1000])
+          and np.array_equal(got_d, d_ivf[:1000]),
+          "serve: submit()'s answers differ from search()'s rows")
+    four = [eng.submit(ds.test[j], n_probes=4) for j in range(100)]
+    wd, wi = ivf.search(state, Q[:100], k=K, n_probes=4)
+    check(np.array_equal(np.stack([t.result()[1] for t in four]),
+                         wi.cpu().numpy())
+          and np.array_equal(np.stack([t.result()[0] for t in four]),
+                             wd.cpu().numpy()),
+          "serve: a per-request n_probes 4 differs from the static search "
+          "at 4")
+    check(not np.array_equal(wi.cpu().numpy(), i_ivf[:100]),
+          "serve: n_probes 4 answered as n_probes 10 does")
+    try:
+        eng.submit(ds.test[0], n_probes=33)
+        check(False, "serve: n_probes 33 above max_probes 32 was accepted")
+    except ValueError:
+        pass
+    ok1, late, ok2 = (eng.submit(ds.test[0]),
+                      eng.submit(ds.test[1], deadline_ms=-1.0),
+                      eng.submit(ds.test[2]))
+    eng.flush()
+    try:
+        late.result()
+        check(False, "serve: an expired request was answered")
+    except DeadlineExceeded:
+        pass
+    check(np.array_equal(ok1.result()[1], i_ivf[0])
+          and np.array_equal(ok2.result()[1], i_ivf[2]),
+          "serve: an expired request's micro-batch was not answered")
+    log(json.dumps({"phase": "serve_requests", "submitted": 1000,
+                    "submit_flush_s": t_submit, "override_n_probes": 4,
+                    "stats": eng.stats}))
+
+    # 3. checkpoint at full size
+    out = ROOT / "build" / "serve"
+    path, cut = out / "ivf.ckpt", out / "cut.ckpt"
+    _, t_save = timed_s(torch, lambda: eng.save(path))
+    loaded, t_load = timed_s(torch, lambda: Engine.load(path, device="cuda"))
+    d, i = loaded.search(ds.test)
+    check(np.array_equal(i, i_ivf) and np.array_equal(d, d_ivf),
+          "serve: the engine loaded from its checkpoint answers otherwise")
+    with faults.injected(FaultPlan(ckpt_truncate_at=(0,))):
+        eng.save(cut)
+    try:
+        Engine.load(cut, device="cuda")
+        check(False, "serve: a truncated checkpoint loaded")
+    except CheckpointError:
+        pass
+    log(json.dumps({"phase": "serve_checkpoint", "save_s": t_save,
+                    "load_s": t_load, "bytes": path.stat().st_size,
+                    "truncated_bytes": cut.stat().st_size}))
+    path.unlink()
+    cut.unlink()
+    del eng, loaded
+
+    # 4. live mutation under the engine
+    meng, t_build = timed_s(torch, lambda: Engine.build(
+        "MutableIVF", ds.train, metric="euclidean",
+        build_params={"n_clusters": 1024, "rerank_kernel": True,
+                      "delta_capacity": 4096},
+        batch_size=256, query_params=qp, device="cuda"))
+    rng = np.random.default_rng(0)
+    src = rng.choice(ds.n, 1024, replace=False)
+    new = ds.train[src] + rng.normal(0.0, 0.01, (1024, ds.train.shape[1]))
+    meng.insert(new.astype(np.float32))
+    dead = np.unique(ds.neighbors[:, 0]).astype(np.int32)
+    meng.delete(dead)
+    gids, X_live = mutate.live_items(meng.state)
+    od = np.sqrt(np.maximum(live_oracle(torch, X_live, gids, ds.test,
+                                        K)[0], 0.0))
+
+    def held(label, d, i):
+        rec = sq_recall(d, i, od)
+        check(np.isin(i[i >= 0], gids).all() and not np.isin(i, dead).any(),
+              f"serve: MutableIVF ({label}) returned a deleted or unknown "
+              f"id")
+        check(abs(rec - frozen) <= 0.02,
+              f"serve: MutableIVF recall {rec} ({label}) is not within 0.02 "
+              f"of the frozen engine's {frozen}")
+        return rec
+
+    d0, i0 = meng.search(ds.test)
+    churn_recall = held("after the churn", d0, i0)
+    before = meng.state
+    with faults.injected(FaultPlan(compact_fault_at=(0,))):
+        failed = meng.compact(background=True).join(timeout=600)
+    d1, i1 = meng.search(ds.test)
+    check(isinstance(failed.error, CompactionError)
+          and meng.state is before
+          and meng.stats["compaction_failures"] == 1
+          and np.array_equal(i1, i0) and np.array_equal(d1, d0),
+          f"serve: a failed background compaction changed serving: "
+          f"{failed.error!r}, {meng.stats}")
+    handle = meng.compact(background=True)
+    during, served_before_swap = [], 0
+    for _ in range(10):
+        d, i = meng.search(ds.test)
+        served_before_swap += not handle.done()
+        during.append(held("during the compaction", d, i))
+    t0 = time.perf_counter()
+    handle.join(timeout=600)
+    t_join = time.perf_counter() - t0
+    check(handle.ok and meng.stats["compactions"] == 1
+          and int(meng.state["count"]) == 0,
+          f"serve: the background compaction failed: {handle.error!r}")
+    d2, i2 = meng.search(ds.test)
+    after = held("after the compaction", d2, i2)
+    launches = read_counters()
+    log(json.dumps({"phase": "serve_mutate", "build_s": t_build,
+                    "frozen_recall": frozen, "churn_recall": churn_recall,
+                    "recall_during": during, "compact_recall": after,
+                    "searches_before_swap": served_before_swap,
+                    "join_wait_s": t_join, "stats": meng.stats,
+                    "launches": launches,
+                    "seconds": time.perf_counter() - t_phase}))
+    check(launches["stream_topk"] > 0 and launches["rerank_lists"] > 0,
+          f"serve: kernel 1 or kernel 2's list entry never launched: "
+          f"{launches}")
+    del meng, before
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_benches(torch):
-    """The sweep / tuner / compressed benches at ``default`` scale
-    (n = 20,000) on the card, each with the launch counts set to 0 before
-    it and read after.  Every gate of each must hold (the modules assert
-    them), and kernel 4 must launch in ``bench_pq``."""
-    from repro_torch.benchmarks import bench_pq, bench_sweep, bench_tune
+    """The sweep / tuner / compressed / serving benches at ``default``
+    scale (n = 20,000) on the card, each with the launch counts set to 0
+    before it and read after.  Every gate of each must hold (the modules
+    assert them), and kernel 4 must launch in ``bench_pq``."""
+    from repro_torch.benchmarks import (bench_engine, bench_pq, bench_sweep,
+                                        bench_tune)
     from repro_torch.benchmarks.common import write_bench_json
 
     out = ROOT / "build" / "benches"
     total, per = {}, {}
     t0 = time.perf_counter()
     for name, mod in (("sweep", bench_sweep), ("tune", bench_tune),
-                      ("pq", bench_pq)):
+                      ("pq", bench_pq), ("serve", bench_engine)):
         t_bench = time.perf_counter()
         reset_counters()
         extra = None
@@ -2710,6 +2936,7 @@ def main() -> int:
     routes = phase_routes(torch, state, ds.test)
     tune_launches = phase_tune(torch, ds, state)
     mutate_launches = phase_mutate(torch, ds, state)
+    serve_launches = phase_serve(torch, ds, state)
     del state
     torch.cuda.empty_cache()
     if before is not None:
@@ -2723,7 +2950,7 @@ def main() -> int:
     # 3. the paths, through the runner; ``paths`` sums each kernel's
     # launches over them (single-query runs apart)
     paths = {}
-    for launches in (tune_launches, mutate_launches):
+    for launches in (tune_launches, mutate_launches, serve_launches):
         for kernel, count in launches.items():
             paths[kernel] = paths.get(kernel, 0) + count
 

@@ -18,8 +18,7 @@ tables/figures, as in the reference:
     bench_batch_mode      Figure 11 + §4.4 (batch vs single)
     bench_kernels         kernel micro-benchmarks with bounds and parity
     bench_distance_topk   streaming vs materialising top-k, equal memory
-The reference's ``serve`` module (``bench_engine``) waits for serving to
-be ported (ROADMAP).
+    bench_engine          serving: Engine micro-batching vs legacy loop
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ MODULES = [
     ("fig11", "repro_torch.benchmarks.bench_batch_mode"),
     ("kernels", "repro_torch.benchmarks.bench_kernels"),
     ("stream", "repro_torch.benchmarks.bench_distance_topk"),
+    ("serve", "repro_torch.benchmarks.bench_engine"),
 ]
 
 

@@ -30,7 +30,8 @@ def state_from_reference(algo: str, metric: str,
     """An IndexState on ``device`` holding the same arrays and statics.
     uint32 arrays (packed codes) become int32 tensors with the same bits;
     a tuple or list of arrays (HNSW's ``layers``, one width per level)
-    becomes a tuple of tensors."""
+    becomes a tuple of tensors; a nested port state (a mutable index's
+    ``main``) is kept as it is."""
     dev = resolve_device(device)
 
     def tensor(a):
@@ -39,6 +40,7 @@ def state_from_reference(algo: str, metric: str,
             return words_to_tensor(a, dev)
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    out = {name: tuple(tensor(x) for x in a) if isinstance(a, (tuple, list))
+    out = {name: a if isinstance(a, IndexState)
+           else tuple(tensor(x) for x in a) if isinstance(a, (tuple, list))
            else tensor(a) for name, a in arrays.items()}
     return IndexState(algo, metric, out, dict(static))

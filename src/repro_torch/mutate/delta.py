@@ -56,9 +56,11 @@ the rebuild *raw* rows -- normalising an already-normalised vector is not
 bitwise idempotent.  Euclidean/hamming canonicalisation is a dtype cast,
 so no raw copy is kept.
 
-The reference's ``compact`` calls the serving layer's fault-injection hook
-(``serve.faults.compaction_attempt``); the port has no serving layer yet,
-so no hook is called.
+:func:`compact` calls the serving layer's fault-injection hook
+(``serve.faults.compaction_attempt``) before anything else, as the
+reference does: an installed plan with ``compact_fault`` scheduled raises
+:class:`~repro_torch.serve.errors.CompactionError` there, before any new
+state exists.
 """
 
 from __future__ import annotations
@@ -487,9 +489,19 @@ def compact(state: IndexState) -> IndexState:
     the rebuilt corpus is padded back to the previous slot count whenever
     the live set fits; if the live set outgrew the slots, they grow by
     ``delta_capacity`` headroom.  MutableIVF re-clusters.  ``state``
-    itself is unchanged: persisting the new one is the caller's move.
+    itself is unchanged: persisting the new one is the caller's move
+    (the atomic tmp-rename of :mod:`repro_torch.serve.checkpoint`), so a
+    death anywhere in here leaves the last checkpoint untouched.  An
+    installed fault plan may make it raise
+    :class:`~repro_torch.serve.errors.CompactionError` first.
     """
     _require_mutable(state, "compact()")
+    # fault-injection point: an installed FaultPlan with compact_fault
+    # scheduled raises CompactionError HERE, before any new state exists,
+    # so the caller's serving state is provably untouched (lazy import:
+    # repro_torch.mutate stays importable without the serve package)
+    from repro_torch.serve import faults as _faults
+    _faults.compaction_attempt()
     metric = state.metric
     inner_name = state.stat("inner")
     cap = state.stat("delta_capacity")

@@ -41,7 +41,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.benchmarks.bench_pq",
             "repro_torch.benchmarks.sweep_rerank_block",
             "repro_torch.benchmarks.sweep_churn",
-            "repro_torch.benchmarks.sweep_build"} <= set(mods)
+            "repro_torch.benchmarks.sweep_build", "repro_torch.serve",
+            "repro_torch.serve.errors", "repro_torch.serve.faults",
+            "repro_torch.serve.checkpoint", "repro_torch.serve.engine",
+            "repro_torch.benchmarks.bench_engine"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -86,6 +89,7 @@ def _entry_points(tmp_path):
     from repro_torch import mutate
     from repro_torch.benchmarks import bench_sweep
     from repro_torch.launch import tune as tune_cli
+    from repro_torch.serve import Engine, checkpoint, load_state
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -153,7 +157,28 @@ def _entry_points(tmp_path):
              "--min-recall", "0.1"]
             + ([] if dev is None else ["--device", dev])),
         "bench_sweep": lambda dev: bench_sweep.run("smoke", dev),
+        "Engine.build": lambda dev: Engine.build(
+            "IVF", X, metric="euclidean", build_params={"n_clusters": 4},
+            device=dev),
+        "Engine.load": lambda dev: Engine.load(_checkpoint_file(tmp_path, X),
+                                               device=dev),
+        "checkpoint.load": lambda dev: checkpoint.load(
+            _checkpoint_file(tmp_path, X), device=dev),
+        "load_state": lambda dev: load_state(_checkpoint_file(tmp_path, X),
+                                             device=dev),
     }
+
+
+def _checkpoint_file(tmp_path, X):
+    """A checkpoint written on the CPU (saving needs no device), for the
+    loaders to read."""
+    from repro_torch.ann import bruteforce
+    from repro_torch.serve import checkpoint
+
+    path = tmp_path / "bf.ckpt"
+    if not path.exists():
+        checkpoint.save(path, bruteforce.build(X, device="cpu"))
+    return path
 
 
 def _figure_bench(dev):
@@ -176,7 +201,8 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "decode_attention", "benchmarks.run", "graph.build",
                 "hnsw.build", "benchmarks.run fig8",
                 "MutableBruteForce build", "MutableIVF build", "launch.tune",
-                "bench_sweep"]
+                "bench_sweep", "Engine.build", "Engine.load",
+                "checkpoint.load", "load_state"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

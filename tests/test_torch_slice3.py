@@ -222,8 +222,9 @@ def test_bench_entry_point_runs_as_a_module(tmp_path):
     assert art["extra"]["device"] == "cpu"
     from repro_torch.benchmarks import run
 
+    assert [k for k, _ in run.MODULES][-1] == "serve"
     with pytest.raises(SystemExit):
-        run.main(["--only", "serve", "--device", "cpu"])
+        run.main(["--only", "no_such_bench", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("bench, target", [

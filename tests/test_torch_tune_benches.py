@@ -1,11 +1,14 @@
-"""The port's sweep / tuner / compressed-domain benches
-(``repro_torch.benchmarks.bench_{sweep,tune,pq}``) at ``smoke`` on the
-CPU against the reference's ``benchmarks/`` modules: the reference's row
-names and non-timing fields.  Times are each package's own and not
+"""The port's sweep / tuner / compressed-domain / serving benches
+(``repro_torch.benchmarks.bench_{sweep,tune,pq,engine}``) at ``smoke`` on
+the CPU against the reference's ``benchmarks/`` modules: the reference's
+row names and non-timing fields.  Times are each package's own and not
 compared; ``bench_sweep`` and ``bench_tune`` print no other field a
 package's timings do not decide, so their rows are held to the
 reference's configuration (``SWEEPS``, ``GRIDS``, ``NQ``) without running
 it, and ``bench_pq`` runs in both packages on one dataset cache.
+``bench_engine``'s rows are held to the reference's names, request draws
+(``_draw``) and padding, also without running it (its jittered rows time
+the reference's retraces).
 """
 
 import pytest
@@ -100,3 +103,48 @@ def test_bench_pq_summary_matches_reference(shared_cache, monkeypatch):
     kernel = _derived(got_rows[-1])
     assert kernel["device"] == "cpu" and kernel["parity"] == "ids_bitwise"
     assert kernel["b"] == _derived(want_rows[-1])["b"]
+
+
+def test_bench_engine_rows_match_reference(shared_cache, monkeypatch):
+    """The reference's row names, equal recall across the two paths, and
+    the Engine's padded rows counted from the reference's own request
+    draws: the warm-up, the jittered stream and the fixed stream pad each
+    request up to whole micro-batches of ``BATCH``.  The timed streams
+    are cut to two requests each (the rows and draws are those of the
+    reference's run at that length).  Without a card and without
+    ``"cpu"`` it raises before building anything."""
+    import numpy as np
+    from benchmarks import bench_engine as jx_bench
+    from repro_torch.benchmarks import bench_engine
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_engine.run("smoke")
+    assert (bench_engine.K, bench_engine.BATCH, bench_engine.N_REQUESTS) \
+        == (jx_bench.K, jx_bench.BATCH, jx_bench.N_REQUESTS)
+    n_requests = 2
+    monkeypatch.setattr(bench_engine, "N_REQUESTS", n_requests)
+    got = bench_engine.run("smoke", "cpu")
+    assert [r.name for r in got] == [
+        f"serve/{w}/{p}" for w in ("jittered", "fixed")
+        for p in ("legacy_batch_query_loop", "engine_micro_batched",
+                  "engine_speedup")]
+    rows = {r.name: _derived(r) for r in got}
+    for w in ("jittered", "fixed"):
+        assert rows[f"serve/{w}/legacy_batch_query_loop"]["recall"] \
+            == rows[f"serve/{w}/engine_micro_batched"]["recall"]
+        assert rows[f"serve/{w}/engine_speedup"]["equal_recall"] == "True"
+        assert float(rows[f"serve/{w}/engine_micro_batched"]["recall"]) \
+            >= 0.9
+
+    from types import SimpleNamespace
+
+    from repro_torch.benchmarks.common import dataset_size
+
+    # request sizes are drawn before any row, so any test set will do
+    ds = SimpleNamespace(test=np.zeros((dataset_size("smoke"), 1)))
+    warm = jx_bench._draw(ds, np.random.default_rng(0), 4)[1]
+    jittered = jx_bench._draw(ds, np.random.default_rng(1), n_requests)[1]
+    want = sum(-len(q) % jx_bench.BATCH for q in warm + jittered)
+    assert rows["serve/fixed/engine_micro_batched"]["padded"] == str(want)
