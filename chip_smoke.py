@@ -118,7 +118,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (the same rows, one insert of 1,024 rows, every query's nearest base
     row deleted) against the live-row oracle before, during and after a
     background compaction, a failed one (an injected CompactionError)
-    leaving its answers as they were.
+    leaving its answers as they were.  Then the ``async`` phase on the
+    same states: ``repro_torch.serve.AsyncEngine`` over three tenants
+    (IVF at n_probes 8 and 16 under max_probes 16, BruteForce(pallas)),
+    micro-batches of 256: four client threads' 10^4 requests equal to
+    each tenant Engine's ``search()`` bit for bit; 20,000 open-loop
+    Poisson requests at 40 % of the probed capacity (none rejected or
+    timed out, recall >= 0.9 per tenant, p95 within the bound of the
+    reference's ``bench_serving``; one second of load traced); a burst
+    against ``max_queue`` 512 (typed refusals, every admitted ticket
+    resolved in time); the serve phase's MutableIVF as a fourth tenant
+    compacting in the background under 2,000 requests; an injected pump
+    death failing 64 tickets typed; the ``std`` + ``exact`` pump through
+    one archive bit for bit; and ``launch.serve`` in stream and churn
+    modes at ``blobs-euclidean-20000`` with ``--assert-recall 0.9``.
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -154,8 +167,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its numbers and its launches, summed over the ANN
-paths of phase 3 with the ``tune``, ``mutate``, ``serve`` and ``benches``
-phases (kernels 1-4 and kernel 2's list entry) or on the bench path
+paths of phase 3 with the ``tune``, ``mutate``, ``serve``, ``async`` and
+``benches`` phases (kernels 1-4 and kernel 2's list entry) or on the bench path
 (kernels 5-7).
 Datasets are cached under ``build/data`` beside this script.
 """
@@ -2289,7 +2302,6 @@ def phase_serve(torch, ds, state):
     bstate = bruteforce.build(ds.train, backend="pallas", device="cuda")
     vs_direct("bruteforce", Engine(bstate, batch_size=256),
               lambda: bruteforce.search(bstate, Q, k=K))
-    del bstate
 
     # 2. requests
     t0 = time.perf_counter()
@@ -2417,7 +2429,406 @@ def phase_serve(torch, ds, state):
     check(launches["stream_topk"] > 0 and launches["rerank_lists"] > 0,
           f"serve: kernel 1 or kernel 2's list entry never launched: "
           f"{launches}")
-    del meng, before
+    del before
+    # the async phase serves these again
+    return launches, {"bruteforce": bstate, "mutable": meng, "dead": dead}
+
+
+def phase_async(torch, ds, state, kept):
+    """The async pump (``repro_torch.serve.AsyncEngine``) on the main set,
+    launch counts set to 0 before and read after (kernels 1 and 2's list
+    entry must launch).  Every engine has micro-batches of 256:
+      1. parity: tenants ``std`` (IVF, n_probes 8 under max_probes 16),
+         ``gold`` (the same state at 16) and ``exact`` (the serve phase's
+         BruteForce(pallas)); four client threads submit the 10^4 queries
+         round-robin over the tenants, and every ticket equals that tenant
+         Engine's ``search()`` row, ids and distances bit for bit (QPS of
+         both logged);
+      2. open loop: 20,000 Poisson requests in bursts of 1-4, 70/30 over
+         ``std`` / ``gold``, at 40 % of the capacity probed as the
+         reference's ``bench_serving`` probes it, ``max_wait_ms =
+         max(15, 3 x the service time)``, a 10 s deadline: none rejected
+         or timed out, recall@10 >= 0.9 per tenant against the ground
+         truth, p95 within that bench's bound (max_wait + 1.5 x groups x
+         service, the service being the pump's median micro-batch in
+         this run; the bound from the quiet probe is logged beside it);
+         then about one second of the same load traced (the device's
+         idle share);
+      3. burst: as fast as the client submits against ``max_queue`` 512,
+         a third overriding n_probes to 4 or 16: some refused with
+         AdmissionError, every admitted ticket answered or
+         DeadlineExceeded, no answer later than the deadline + 2 x the
+         burst's own longest micro-batch service (the busy client holds
+         the GIL, so a service takes longer than the quiet probe's; both
+         logged);
+      4. compaction under fire: the serve phase's MutableIVF engine as a
+         fourth tenant, 1,024 more rows inserted, ``compact(background=
+         True)`` while 2,000 requests go to it, then 2,000 after the swap:
+         every ticket answered, no deleted or unknown id, recall against
+         the live-row oracle within 0.02 of the frozen IVF's on the same
+         queries (n_probes 10) before and after;
+      5. pump death: a pump over ``std`` under ``FaultPlan(pump_death_at=
+         (0,))`` fails its 64 tickets with EngineDegraded (a PumpFault
+         cause) within 30 s, its thread is gone, a new submit is refused;
+      6. restore: the ``std`` + ``exact`` pump saved as one archive and
+         loaded by ``AsyncEngine.load``, bit for bit (seconds and bytes
+         logged, the files removed);
+      7. the CLI: ``repro_torch.launch.serve.main`` in stream mode (IVF)
+         and churn mode (MutableIVF) at ``blobs-euclidean-20000`` with
+         ``--assert-recall 0.9``."""
+    import shutil
+    import tempfile
+
+    from repro_torch import mutate
+    from repro_torch.ann import ivf
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import (AdmissionError, AsyncEngine,
+                                   DeadlineExceeded, Engine, EngineDegraded,
+                                   FaultPlan, PumpFault, faults)
+
+    class TimedPump(AsyncEngine):
+        """The pump, recording each micro-batch's service time."""
+
+        def __init__(self, *args, **kwargs):
+            self.service_s = []
+            super().__init__(*args, **kwargs)
+
+        def _serve(self, batch):
+            t_serve = time.perf_counter()
+            super()._serve(batch)
+            self.service_s.append(time.perf_counter() - t_serve)
+
+    t_phase = time.perf_counter()
+    reset_counters()
+    B = 256
+    nq = ds.test.shape[0]
+    names = ("std", "gold", "exact")
+    engines = {t: Engine(state, batch_size=B,
+                         query_params={"n_probes": p, "max_probes": 16})
+               for t, p in (("std", 8), ("gold", 16))}
+    engines["exact"] = Engine(kept["bruteforce"], batch_size=B)
+
+    # 1. three tenants behind one pump, against each tenant's search()
+    want, t_search = {}, 0.0
+    for n, t in enumerate(names):
+        sel = np.arange(n, nq, len(names))
+        engines[t].search(ds.test[sel[:B]])
+        (d, i), s = timed_s(torch, lambda e=engines[t], q=ds.test[sel]:
+                            e.search(q))
+        want[t] = (sel, d, i)
+        t_search += s
+    tickets = [None] * nq
+    srv = AsyncEngine(engines, max_wait_ms=2.0, max_queue=2 * nq)
+
+    def client(c):
+        for j in range(c, nq, 4):
+            tickets[j] = srv.submit(ds.test[j], tenant=names[j % 3])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    answers = [t.result(timeout=120) for t in tickets]
+    t_pump = time.perf_counter() - t0
+    srv.close()
+    differ = 0
+    for n, t in enumerate(names):
+        sel, d, i = want[t]
+        gd = np.stack([answers[j][0] for j in sel])
+        gi = np.stack([answers[j][1] for j in sel])
+        differ += int(((gi != i) | (gd != d)).any(axis=1).sum())
+    snap = srv.metrics.snapshot()
+    log(json.dumps({"phase": "async_parity", "queries": nq,
+                    "queries_differing": differ, "pump_s": t_pump,
+                    "pump_qps": nq / t_pump, "search_s": t_search,
+                    "search_qps": nq / t_search,
+                    "counters": snap["counters"],
+                    "latency_ms": snap["latency_ms"]}))
+    check(differ == 0, f"async: {differ} pump answers differ from their "
+                       f"tenant Engine's search()")
+    check(snap["counters"].get("failed", 0) == 0
+          and snap["counters"]["served"] == nq,
+          f"async: the parity pump failed tickets: {snap['counters']}")
+
+    # 2. open loop at 40 % of the probed capacity
+    tiers = {t: engines[t] for t in ("std", "gold")}
+    samples = []
+    for eng in tiers.values():
+        eng.search(ds.test[:B])
+        for _ in range(5):
+            _, s = timed_s(torch, lambda e=eng: e.search(ds.test[:B]))
+            samples.append(s)
+    svc = max(samples)
+    rate = 0.4 * B / svc
+    max_wait_ms = max(15.0, 3.0 * svc * 1e3)
+    probed_bound_ms = max_wait_ms + 1.5 * len(tiers) * svc * 1e3
+    rng = np.random.default_rng(0)
+
+    def open_loop(pump, n_requests):
+        inflight, rejected = [], 0
+        while len(inflight) + rejected < n_requests:
+            burst = int(rng.integers(1, 5))
+            tenant = "std" if rng.random() < 0.7 else "gold"
+            for _ in range(burst):
+                sel = int(rng.integers(0, nq))
+                try:
+                    inflight.append((pump.submit(ds.test[sel],
+                                                 tenant=tenant),
+                                     tenant, sel))
+                except AdmissionError:
+                    rejected += 1
+            time.sleep(rng.exponential(burst / rate))
+        return inflight, rejected
+
+    def settle(inflight):
+        answered, timed_out = {t: ([], [], []) for t in tiers}, 0
+        for ticket, tenant, sel in inflight:
+            try:
+                d, i = ticket.result(timeout=120)
+            except DeadlineExceeded:
+                timed_out += 1
+                continue
+            answered[tenant][0].append(sel)
+            answered[tenant][1].append(d)
+            answered[tenant][2].append(i)
+        return answered, timed_out
+
+    pump = TimedPump(tiers, max_wait_ms=max_wait_ms, max_queue=8 * B,
+                     default_deadline_ms=10_000.0)
+    t0 = time.perf_counter()
+    inflight, rejected = open_loop(pump, 20_000)
+    answered, timed_out = settle(inflight)
+    t_open = time.perf_counter() - t0
+    pump.close()
+    snap = pump.metrics.snapshot()
+    # the reference bench_serving's bound: the flush timeout, then one
+    # micro-batch per group, x1.5.  A micro-batch's service is the
+    # pump's own (median) under this load: on the pump's thread, with
+    # the client taking the GIL at its torch ops, it runs past the quiet
+    # probe's (logged)
+    service_ms = 1e3 * float(np.median(pump.service_s))
+    bound_ms = max_wait_ms + 1.5 * len(tiers) * service_ms
+    # then about a second of the same load (as many requests as the
+    # client offered in a second above) under the profiler, on a pump of
+    # its own
+    n_traced = int(len(inflight) / t_open)
+    traced = AsyncEngine(tiers, max_wait_ms=max_wait_ms, max_queue=8 * B,
+                         default_deadline_ms=10_000.0)
+    by_name, idle, window_ms, n_device = profile_call(
+        torch, lambda: settle(open_loop(traced, n_traced)[0]), count=True)
+    traced.close()
+    lat = snap["latency_ms"]
+    recalls = {t: sq_recall(np.stack(d), np.stack(i),
+                            ds.distances[np.asarray(sel)])
+               for t, (sel, d, i) in answered.items() if sel}
+    log(json.dumps({"phase": "async_open_loop", "requests": len(inflight),
+                    "rate_qps": rate, "capacity_qps": B / svc,
+                    "probed_service_ms": svc * 1e3,
+                    "max_wait_ms": max_wait_ms, "batches":
+                    len(pump.service_s), "service_ms_p50": service_ms,
+                    "service_ms_p95": 1e3 * float(np.percentile(
+                        pump.service_s, 95)),
+                    "p95_bound_ms": bound_ms,
+                    "probed_p95_bound_ms": probed_bound_ms,
+                    "within_probed_bound": bool(
+                        snap["latency_ms"]["p95"] <= probed_bound_ms),
+                    "seconds": t_open,
+                    "offered_qps": len(inflight) / t_open,
+                    "rejected": rejected, "timed_out": timed_out,
+                    "recall": recalls, "latency_ms": lat,
+                    "counters": snap["counters"],
+                    "traced": {"requests": n_traced,
+                               "window_ms": window_ms, "idle_share": idle,
+                               "device_ms": sum(by_name.values()),
+                               "device_kernels_and_copies": n_device,
+                               "top_ms": top_device_ms(by_name, 8)}}))
+    check(rejected == 0 and timed_out == 0,
+          f"async: the open loop rejected {rejected} and timed out "
+          f"{timed_out} requests")
+    check(len(recalls) == 2 and min(recalls.values()) >= 0.9,
+          f"async: open-loop recall {recalls} below 0.9")
+    check(lat["p95"] <= bound_ms,
+          f"async: open-loop p95 {lat['p95']:.2f} ms above the bound "
+          f"{bound_ms:.2f} ms")
+
+    # 3. an over-capacity burst against a small admission bound
+    deadline_ms = max(2.5 * svc * 1e3, 20.0)
+    pump = TimedPump(tiers, max_wait_ms=50.0, max_queue=512,
+                     default_deadline_ms=deadline_ms)
+    n_burst = 512 + 8 * B
+    burst, refused = [], 0
+    for _ in range(n_burst):
+        sel = int(rng.integers(0, nq))
+        overrides = ({"n_probes": int(rng.choice((4, 16)))}
+                     if rng.random() < 0.33 else {})
+        try:
+            burst.append(pump.submit(ds.test[sel], tenant="std",
+                                     **overrides))
+        except AdmissionError:
+            refused += 1
+    answered_n = late_n = 0
+    for t in burst:
+        try:
+            t.result(timeout=120)
+            answered_n += 1
+        except DeadlineExceeded:
+            late_n += 1
+    pump.close()
+    lat = pump.metrics.snapshot()["latency_ms"]
+    # While one Python thread submits in a tight loop, the pump gets the
+    # GIL back only a switch interval after each torch op gives it up,
+    # so a micro-batch takes far longer than the quiet probe's
+    # (benchmarks/sweep_serving.py measures it; PERF.md).  The bound is
+    # checked against the burst's own service times; the quiet probe's
+    # is logged beside it.
+    served_ms = 1e3 * max(pump.service_s, default=0.0)
+    log(json.dumps({"phase": "async_burst", "submitted": n_burst,
+                    "admitted": len(burst), "rejected": refused,
+                    "answered": answered_n, "timed_out": late_n,
+                    "deadline_ms": deadline_ms, "latency_ms": lat,
+                    "batches": len(pump.service_s),
+                    "service_ms_max": served_ms,
+                    "service_ms_p50": 1e3 * float(np.median(
+                        pump.service_s)) if pump.service_s else None,
+                    "probed_service_ms": svc * 1e3,
+                    "within_probed_bound": bool(
+                        answered_n == 0
+                        or lat["max"] <= deadline_ms + 2e3 * svc)}))
+    check(refused > 0, "async: the burst was never refused admission")
+    check(answered_n + late_n == len(burst),
+          "async: an admitted burst ticket did not resolve")
+    check(answered_n == 0 or lat["max"] <= deadline_ms + 2 * served_ms,
+          f"async: a burst answer came {lat['max']:.2f} ms after submit, "
+          f"past the deadline {deadline_ms:.2f} ms + 2 of the burst's "
+          f"service times ({served_ms:.2f} ms each)")
+
+    # 4. a background compaction under load, as a fourth tenant
+    meng, dead = kept["mutable"], kept["dead"]
+    n_fire = 2000
+    Qf = ds.test[:n_fire]
+    fd, fi = ivf.search(state, torch.as_tensor(Qf).to("cuda"), k=K,
+                        n_probes=10)
+    frozen = sq_recall(fd.cpu().numpy(), fi.cpu().numpy(),
+                       ds.distances[:n_fire])
+    srv = AsyncEngine({**engines, "mutable": meng}, max_wait_ms=2.0,
+                      max_queue=4 * n_fire)
+    extra_rng = np.random.default_rng(1)
+    src = extra_rng.choice(ds.n, 1024, replace=False)
+    srv.insert((ds.train[src] + extra_rng.normal(
+        0.0, 0.01, (1024, ds.train.shape[1]))).astype(np.float32),
+        tenant="mutable", auto_compact=False)
+    gids, X_live = mutate.live_items(meng.state)
+    od = np.sqrt(np.maximum(live_oracle(torch, X_live, gids, Qf, K)[0],
+                            0.0))
+    t0 = time.perf_counter()
+    handle = srv.compact(tenant="mutable", background=True)
+    fire, submitted_before_swap = [], 0
+    for q in Qf:
+        submitted_before_swap += not handle.done()
+        fire.append(srv.submit(q, tenant="mutable"))
+    fired = [t.result(timeout=600) for t in fire]
+    handle.join(timeout=600)
+    t_swap = time.perf_counter() - t0
+    after = srv.search(Qf, tenant="mutable", timeout=600)
+    srv.close()
+    recs = {}
+    for label, (d, i) in (("during", (np.stack([a[0] for a in fired]),
+                                      np.stack([a[1] for a in fired]))),
+                          ("after", after)):
+        check(np.isin(i[i >= 0], gids).all() and not np.isin(i, dead).any(),
+              f"async: the mutable tenant ({label} the swap) returned a "
+              f"deleted or unknown id")
+        recs[label] = sq_recall(d, i, od)
+        check(abs(recs[label] - frozen) <= 0.02,
+              f"async: mutable recall {recs[label]} ({label} the swap) is "
+              f"not within 0.02 of the frozen IVF's {frozen}")
+    counters = srv.metrics.snapshot()["tenants"]["mutable"]["counters"]
+    log(json.dumps({"phase": "async_compaction", "requests": 2 * n_fire,
+                    "submitted_before_swap": submitted_before_swap,
+                    "swap_s": t_swap, "frozen_recall": frozen,
+                    "recall": recs, "counters": counters,
+                    "stats": meng.stats}))
+    check(handle.ok and counters.get("compactions") == 1
+          and int(meng.state["count"]) == 0
+          and counters.get("failed", 0) == 0,
+          f"async: the background compaction failed: {handle.error!r}, "
+          f"{counters}")
+
+    # 5. the pump dies at its first batch
+    pump = AsyncEngine({"std": engines["std"]}, max_wait_ms=1e7,
+                       max_batch=64)
+    t0 = time.perf_counter()
+    with faults.injected(FaultPlan(pump_death_at=(0,))):
+        doomed = [pump.submit(q) for q in ds.test[:64]]
+        causes = []
+        for t in doomed:
+            try:
+                t.result(timeout=30)
+                causes.append("answered")
+            except EngineDegraded as e:
+                causes.append(type(e.__cause__).__name__)
+    t_dead = time.perf_counter() - t0
+    pump._pump.join(timeout=30)
+    refused_after = False
+    try:
+        pump.submit(ds.test[0])
+    except EngineDegraded:
+        refused_after = True
+    pump.close(timeout=5)
+    log(json.dumps({"phase": "async_pump_death", "tickets": len(doomed),
+                    "seconds": t_dead, "causes": sorted(set(causes)),
+                    "failed": pump.metrics.counter("failed")}))
+    check(causes == [PumpFault.__name__] * 64 and t_dead < 30
+          and not pump._pump.is_alive() and refused_after,
+          f"async: pump death did not fail every ticket with "
+          f"EngineDegraded: {sorted(set(causes))}, alive "
+          f"{pump._pump.is_alive()}, refused {refused_after}")
+
+    # 6. the std + exact pump through one archive
+    out = ROOT / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="async-", dir=out))
+    path = tmp / "pump.ckpt"
+    pump = AsyncEngine({t: engines[t] for t in ("std", "exact")},
+                       max_wait_ms=2.0, max_queue=4096)
+    _, t_save = timed_s(torch, lambda: pump.save(path))
+    pump.close()
+    nbytes = path.stat().st_size
+    loaded, t_load = timed_s(torch, lambda: AsyncEngine.load(
+        path, device="cuda", max_wait_ms=2.0, max_queue=4096))
+    same = True
+    for t in ("std", "exact"):
+        d, i = loaded.search(ds.test[:1024], tenant=t, timeout=120)
+        wd, wi = engines[t].search(ds.test[:1024])
+        same &= bool(np.array_equal(i, wi) and np.array_equal(d, wd))
+    loaded.close()
+    shutil.rmtree(tmp)
+    log(json.dumps({"phase": "async_restore", "save_s": t_save,
+                    "load_s": t_load, "bytes": nbytes,
+                    "tenants": list(loaded.tenants), "bit_for_bit": same}))
+    check(same, "async: the restored pump answers otherwise")
+
+    # 7. the serving CLI on the card
+    cli = {}
+    for mode, algo, extra in (
+            ("stream", "IVF", ["--max-wait-ms", "5", "--deadline-ms", "100",
+                               "--n-requests", "2000"]),
+            ("churn", "MutableIVF", [])):
+        t0 = time.perf_counter()
+        rec = serve_cli.main(
+            ["--dataset", "blobs-euclidean-20000", "--algorithm", algo,
+             "--build", "n_clusters=64", "--query", "n_probes=8",
+             "--mode", mode, "--assert-recall", "0.9"] + extra)
+        cli[mode] = {"recall": rec, "seconds": time.perf_counter() - t0}
+    launches = read_counters()
+    log(json.dumps({"phase": "async_cli", "modes": cli,
+                    "launches": launches,
+                    "seconds": time.perf_counter() - t_phase}))
+    check(launches["stream_topk"] > 0 and launches["rerank_lists"] > 0,
+          f"async: kernel 1 or kernel 2's list entry never launched: "
+          f"{launches}")
     torch.cuda.empty_cache()
     return launches
 
@@ -2936,8 +3347,9 @@ def main() -> int:
     routes = phase_routes(torch, state, ds.test)
     tune_launches = phase_tune(torch, ds, state)
     mutate_launches = phase_mutate(torch, ds, state)
-    serve_launches = phase_serve(torch, ds, state)
-    del state
+    serve_launches, kept = phase_serve(torch, ds, state)
+    async_launches = phase_async(torch, ds, state, kept)
+    del state, kept
     torch.cuda.empty_cache()
     if before is not None:
         ads = get_dataset(ANGULAR, device="cuda")
@@ -2950,7 +3362,8 @@ def main() -> int:
     # 3. the paths, through the runner; ``paths`` sums each kernel's
     # launches over them (single-query runs apart)
     paths = {}
-    for launches in (tune_launches, mutate_launches, serve_launches):
+    for launches in (tune_launches, mutate_launches, serve_launches,
+                     async_launches):
         for kernel, count in launches.items():
             paths[kernel] = paths.get(kernel, 0) + count
 

@@ -36,10 +36,10 @@ under ``max_ef`` -- answer as the reference's traced search does.
 
 ``Engine`` itself is synchronous and single-threaded (a flush happens on
 the caller's thread when a batch fills, a ``ticket.result()`` forces one);
-background compaction runs on its own thread.  The reference's SLO-aware
-pump (``AsyncEngine``) is not ported yet (ROADMAP.md §1), nor are sharded
-states (item 6): an engine refuses a state whose ``static`` has
-``shard_axes``.
+background compaction runs on its own thread.  The SLO-aware pump over
+one or more Engines is :class:`~repro_torch.serve.async_engine.AsyncEngine`.
+Sharded states are not ported yet (ROADMAP.md §1 item 6): an engine
+refuses a state whose ``static`` has ``shard_axes``.
 """
 
 from __future__ import annotations

@@ -44,7 +44,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.benchmarks.sweep_build", "repro_torch.serve",
             "repro_torch.serve.errors", "repro_torch.serve.faults",
             "repro_torch.serve.checkpoint", "repro_torch.serve.engine",
-            "repro_torch.benchmarks.bench_engine"} <= set(mods)
+            "repro_torch.benchmarks.bench_engine",
+            "repro_torch.serve.retry", "repro_torch.serve.metrics",
+            "repro_torch.serve.async_engine",
+            "repro_torch.launch.serve",
+            "repro_torch.benchmarks.sweep_serving"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -89,7 +93,8 @@ def _entry_points(tmp_path):
     from repro_torch import mutate
     from repro_torch.benchmarks import bench_sweep
     from repro_torch.launch import tune as tune_cli
-    from repro_torch.serve import Engine, checkpoint, load_state
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import AsyncEngine, Engine, checkpoint, load_state
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -166,6 +171,12 @@ def _entry_points(tmp_path):
             _checkpoint_file(tmp_path, X), device=dev),
         "load_state": lambda dev: load_state(_checkpoint_file(tmp_path, X),
                                              device=dev),
+        "AsyncEngine.load": lambda dev: AsyncEngine.load(
+            _checkpoint_file(tmp_path, X), device=dev).close(),
+        "launch.serve": lambda dev: serve_cli.main(
+            ["--dataset", "blobs-euclidean-300", "--build", "n_clusters=4",
+             "--n-batches", "1", "--batch-size", "8"]
+            + ([] if dev is None else ["--device", dev])),
     }
 
 
@@ -202,7 +213,8 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "hnsw.build", "benchmarks.run fig8",
                 "MutableBruteForce build", "MutableIVF build", "launch.tune",
                 "bench_sweep", "Engine.build", "Engine.load",
-                "checkpoint.load", "load_state"]
+                "checkpoint.load", "load_state", "AsyncEngine.load",
+                "launch.serve"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -241,10 +253,10 @@ def test_embedbag_sweep_refuses_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("name", ["sweep_rerank_block", "sweep_churn",
-                                  "sweep_build"])
+                                  "sweep_build", "sweep_serving"])
 def test_card_sweeps_refuse_without_cuda(no_cuda, name):
-    """The rerank-block, churn and build sweeps measure the card: without
-    one they stop before building anything."""
+    """The rerank-block, churn, build and serving sweeps measure the card:
+    without one they stop before building anything."""
     import importlib
 
     mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
