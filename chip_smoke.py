@@ -132,6 +132,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     death failing 64 tickets typed; the ``std`` + ``exact`` pump through
     one archive bit for bit; and ``launch.serve`` in stream and churn
     modes at ``blobs-euclidean-20000`` with ``--assert-recall 0.9``.
+    Then the ``sharded`` phase (``phase_sharded``) on the main set at 8
+    logical devices stacked on the card: ShardedBruteForce at S = 1, 2, 8
+    (kernel 1 once a shard), ShardedIVF over the IVF state's lists at S =
+    8 (kernel 2's generic entry) and PQ ShardedBruteForce at S = 8
+    (kernels 4 and 2), their ids against the single-device searches and
+    their kernel routes against the plain routes on 512 queries, their
+    times and the merge tree's share, and an 8-shard Engine through the
+    pump under seeded shard drops and raises (every ticket resolved, 32
+    degraded answers equal to the survivors' search).
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -162,13 +171,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     prints its rows (``FIGURE_ROWS``), and kernels 1 (fig11's
     BruteForce(pallas)) and 3 (fig9's BruteForceHamming(pallas)) launch.
     Last the ``benches`` phase: ``bench_sweep``, ``bench_tune``,
-    ``bench_pq`` and ``bench_engine`` at ``default`` (n = 20,000), every
-    gate holding and kernel 4 launching in ``bench_pq``.
+    ``bench_pq``, ``bench_engine``, ``bench_sharded`` and
+    ``bench_availability`` at ``default`` (n = 20,000), every gate holding
+    and kernel 4 launching in ``bench_pq``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its numbers and its launches, summed over the ANN
-paths of phase 3 with the ``tune``, ``mutate``, ``serve``, ``async`` and
-``benches`` phases (kernels 1-4 and kernel 2's list entry) or on the bench path
+paths of phase 3 with the ``tune``, ``mutate``, ``serve``, ``async``,
+``sharded`` and ``benches`` phases (kernels 1-4 and kernel 2's list entry) or on the bench path
 (kernels 5-7).
 Datasets are cached under ``build/data`` beside this script.
 """
@@ -2833,12 +2843,281 @@ def phase_async(torch, ds, state, kept):
     return launches
 
 
+@contextlib.contextmanager
+def plain_route():
+    """Kernels 1, 2 (generic entry) and 4 replaced by their plain PyTorch
+    versions on CUDA tensors too: the same search, the kernels' plain
+    route, on the card.  The plain versions count no launch."""
+    import repro_torch.kernels.adc_scan.ops as k4
+    import repro_torch.kernels.distance_topk.ops as k1
+    import repro_torch.kernels.rerank_topk.ops as k2
+    from repro_torch.kernels.adc_scan import adc_scan_plain
+    from repro_torch.kernels.distance_topk import stream_topk_plain
+    from repro_torch.kernels.rerank_topk import rerank_topk_plain
+
+    saved = (k1.stream_topk_kernel, k2.rerank_topk_kernel,
+             k4.adc_scan_kernel)
+    k1.stream_topk_kernel = stream_topk_plain
+    k2.rerank_topk_kernel = rerank_topk_plain
+    k4.adc_scan_kernel = adc_scan_plain
+    try:
+        yield
+    finally:
+        (k1.stream_topk_kernel, k2.rerank_topk_kernel,
+         k4.adc_scan_kernel) = saved
+
+
+def blocked(torch, fn, Q, block: int = 2048):
+    """``fn`` over ``Q`` in query blocks (bounds IVF's [b, P*M] window)."""
+    outs = [fn(Q[s:s + block]) for s in range(0, Q.shape[0], block)]
+    return torch.cat([d for d, _ in outs]), torch.cat([i for _, i in outs])
+
+
+def phase_sharded(torch, ds, ivf_state):
+    """Distributed search on the main set at 8 logical devices stacked on
+    the card (``force_device_count(8)``), launch counts set to 0 before
+    and read after:
+      1. ShardedBruteForce at S = 1, 2, 8 with ``use_kernel`` (kernel 1
+         once a shard, ``row_ids`` / ``valid``): ids bit for bit the
+         single-device BruteForce(pallas) search's over the 10^4 queries;
+      2. ShardedIVF: the main IVF state (1,024 lists, ``rerank_kernel``)
+         over 8 shards at n_probes 10 (kernel 2's generic entry once a
+         shard): ids bit for bit single-device IVF's (its list entry);
+      3. PQ ShardedBruteForce (PQ m = 16, ``adc_kernel``,
+         ``rerank_kernel``) over 8 shards at n_cand 1,000 a shard
+         (kernels 4 and 2): each shard keeps its own 1,000 ADC best, a
+         superset of what the single-device search keeps of its rows, so
+         every rank's distance is at most the single-device search's;
+      4. each search's kernel route against its plain route
+         (``plain_route``) on 512 queries: distances within 2e-3, no id
+         mismatch outside near ties;
+      5. times: each search (CUDA events) beside the single-device one,
+         the merge tree alone on the S = 8 search's stacked candidates,
+         and one S = 8 search under ``torch.profiler`` (device launches,
+         idle share);
+      6. an 8-shard Engine (micro-batches of 32) through AsyncEngine
+         under ``FaultPlan(seed=11, shard_drop=0.1, shard_raise=0.05)``
+         with retries, 2,000 requests: every admitted ticket resolves,
+         every degraded one reports 0 <= coverage < 1, and 32 degraded
+         answers equal kernel 1 over only the surviving shards' rows
+         (each micro-batch's mask replayed from the plan's draws)."""
+    from repro_torch.ann import bruteforce, ivf, sharded
+    from repro_torch.dist import shard_state as SS
+    from repro_torch.dist.collectives import tree_merge_topk
+    from repro_torch.dist.mesh import force_device_count
+    from repro_torch.kernels.distance_topk import stream_topk
+    from repro_torch.serve import (AsyncEngine, Engine, FaultPlan,
+                                   RetryPolicy, ServeError, faults)
+
+    t_phase = time.perf_counter()
+    prev = force_device_count(8)
+    reset_counters()
+    Q = torch.as_tensor(ds.test, device="cuda")
+    rec = {}
+
+    def launches_of(fn):
+        before = read_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in read_counters().items()
+                     if v != before[k]}
+
+    # the kernels' fmaf chains against the plain versions' matmuls: within
+    # d * 2^-24 * (|q|^2 + |x|^2), a bound on the cross term's rounding
+    norms = float((Q * Q).sum(1).max()) + float(
+        (torch.as_tensor(ds.train[:100_000], device="cuda") ** 2)
+        .sum(1).max())
+    tol = Q.shape[1] * 2.0 ** -24 * norms
+
+    def route_check(label, fn, k=K):
+        got = fn(Q[:512], k)
+        with plain_route():
+            want = fn(Q[:512], k + 1)
+        torch.cuda.synchronize()
+        max_err, outside, at_ties = compare(torch, got, want, k, tol)
+        check(max_err <= tol and outside == 0,
+              f"sharded {label}: kernel route against the plain route: "
+              f"error {max_err}, {outside} id mismatches outside near ties")
+        return {"max_abs_err": max_err, "tol": tol,
+                "near_tie_swaps": at_ties}
+
+    # 1. ShardedBruteForce, kernel 1 a shard
+    bf = bruteforce.build(ds.train, backend="pallas", device="cuda")
+    single, _ = launches_of(lambda: bruteforce.search(bf, Q, k=K))
+    single_ms = cuda_ms(torch, lambda: bruteforce.search(bf, Q, k=K), 2)
+    rec["bruteforce"] = {"single_ms": single_ms}
+    for S in (1, 2, 8):
+        st = SS.shard_index(bf, n_shards=S)
+        (d, i), used = launches_of(lambda: sharded.bruteforce_search(
+            st, Q, k=K, use_kernel=True))
+        check(used.get("stream_topk") == S,
+              f"sharded S={S}: kernel 1 launched {used}, not once a shard")
+        check(bool(torch.equal(i, single[1])),
+              f"sharded S={S}: ids differ from the single-device search in "
+              f"{int((i != single[1]).any(1).sum())} queries")
+        ms = cuda_ms(torch, lambda: sharded.bruteforce_search(
+            st, Q, k=K, use_kernel=True), 2)
+        rec["bruteforce"][f"S{S}"] = {"ms": ms, "x_single": ms / single_ms,
+                                      "launches": used}
+        if S == 8:
+            rec["bruteforce"]["route"] = route_check(
+                "BruteForce S=8", lambda q, k: sharded.bruteforce_search(
+                    st, q, k=k, use_kernel=True))
+            locs = [stream_topk(Q, st["X"][s], k=2 * K,
+                                row_ids=st["ids"][s],
+                                valid=st["ids"][s] >= 0) for s in range(S)]
+            vals = torch.stack([v for v, _ in locs])
+            ids = torch.stack([j for _, j in locs])
+            merge_ms = cuda_ms(torch, lambda: tree_merge_topk(
+                vals, ids, axes=("data",), axis_sizes=(S,), k=K,
+                codec=st.stat("wire_codec"), exact_vals=True), 3)
+            by_name, idle, window, n_dev = profile_call(
+                torch, lambda: sharded.bruteforce_search(
+                    st, Q, k=K, use_kernel=True), count=True)
+            rec["bruteforce"]["merge"] = {
+                "ms": merge_ms, "share": merge_ms / ms,
+                "trace": {"window_ms": window, "idle": idle,
+                          "device_launches": n_dev,
+                          "top": top_device_ms(by_name, top=6)}}
+            kept = st
+        del st
+    del bf, single
+    torch.cuda.empty_cache()
+
+    # 2. ShardedIVF on the main IVF state: kernel 2's generic entry
+    st = SS.shard_index(ivf_state, n_shards=8)
+    want = blocked(torch, lambda q: ivf.search(ivf_state, q, k=K,
+                                               n_probes=10), Q)
+    (d, i), used = launches_of(lambda: blocked(
+        torch, lambda q: sharded.ivf_search(st, q, k=K, n_probes=10), Q))
+    check(used.get("rerank_topk", 0) == 8 * -(-Q.shape[0] // 2048),
+          f"sharded IVF: kernel 2's generic entry launched {used}")
+    check(bool(torch.equal(i, want[1])),
+          f"sharded IVF: ids differ from single-device IVF in "
+          f"{int((i != want[1]).any(1).sum())} queries")
+    rec["ivf"] = {
+        "pad": ivf_state.stat("pad"), "L": st.stat("L"), "launches": used,
+        "ms": cuda_ms(torch, lambda: blocked(torch, lambda q: (
+            sharded.ivf_search(st, q, k=K, n_probes=10)), Q), 1),
+        "single_ms": cuda_ms(torch, lambda: ivf.search(
+            ivf_state, Q, k=K, n_probes=10), 2),
+        "route": route_check("IVF S=8", lambda q, k: sharded.ivf_search(
+            st, q, k=k, n_probes=10))}
+    del st, want
+    torch.cuda.empty_cache()
+
+    # 3. PQ ShardedBruteForce: kernels 4 and 2
+    pq = bruteforce.build(ds.train, quantize=PQ16, adc_kernel=True,
+                          rerank_kernel=True, device="cuda")
+    st = SS.shard_index(pq, n_shards=8)
+    single = bruteforce.search(pq, Q, k=K, n_cand=1000)
+    (d, i), used = launches_of(lambda: sharded.bruteforce_search(
+        st, Q, k=K, n_cand=1000))
+    check(used.get("adc_scan") == 8 and used.get("rerank_topk") == 8,
+          f"sharded PQ: kernels 4 and 2 launched {used}, not once a shard")
+    check(bool((d <= single[0]).all()),
+          "sharded PQ: a rank's distance exceeds the single-device "
+          "search's (its candidates are a superset)")
+    rec["pq"] = {
+        "launches": used,
+        "recall": sq_recall(d.cpu().numpy(), i.cpu().numpy(), ds.distances),
+        "single_recall": sq_recall(single[0].cpu().numpy(),
+                                   single[1].cpu().numpy(), ds.distances),
+        "ms": cuda_ms(torch, lambda: sharded.bruteforce_search(
+            st, Q, k=K, n_cand=1000), 2),
+        "single_ms": cuda_ms(torch, lambda: bruteforce.search(
+            pq, Q, k=K, n_cand=1000), 2),
+        "route": route_check("PQ S=8", lambda q, k: (
+            sharded.bruteforce_search(st, q, k=k, n_cand=1000)))}
+    del st, pq, single
+    torch.cuda.empty_cache()
+
+    # 4. the 8-shard Engine through the pump under faults
+    X = torch.as_tensor(ds.train, device="cuda")
+    plan = FaultPlan(seed=11, shard_drop=0.1, shard_raise=0.05)
+    log_batches = []
+
+    class Recorded(Engine):
+        def _run_padded(self, Qb, n_live, overrides):
+            e = plan.events("shard_drop")
+            out = super()._run_padded(Qb, n_live, overrides)
+            if out[2] < 1.0:
+                log_batches.append((e, Qb[:n_live].copy(),
+                                    out[0][:n_live], out[1][:n_live]))
+            return out
+
+    eng = Recorded(kept, k=K, batch_size=32,
+                   query_params={"use_kernel": True})
+    rng = np.random.default_rng(11)
+    sels = rng.integers(0, len(ds.test), 2000)
+    t0 = time.perf_counter()
+    with AsyncEngine(eng, max_wait_ms=2.0, max_queue=4096,
+                     retry=RetryPolicy(max_attempts=3, base_ms=1.0,
+                                       jitter=0.5, seed=0)) as srv:
+        with faults.injected(plan):
+            tickets = [srv.submit(ds.test[s]) for s in sels]
+            served = failed = 0
+            coverages = []
+            for t in tickets:
+                try:
+                    t.result(timeout=120)
+                    served += 1
+                    if t.partial:
+                        coverages.append(t.coverage)
+                except ServeError:
+                    failed += 1
+        snap = srv.metrics.snapshot()
+    check(all(t.done() for t in tickets) and served + failed == 2000,
+          "sharded async: an admitted ticket did not resolve")
+    check(bool(coverages) and all(0.0 <= c < 1.0 for c in coverages),
+          f"sharded async: degraded coverages {sorted(set(coverages))}")
+    owners = kept["ids"]
+    checked = 0
+    for e, Qb, d, i in log_batches:
+        keep = [not ((e, s) in plan.shard_drop_at or plan._hit(
+            "shard_drop", e, plan.shard_drop, extra=s + 1))
+            for s in range(8)]
+        rows = owners[torch.as_tensor(keep, device="cuda")].reshape(-1)
+        rows = rows[rows >= 0]
+        take = min(32 - checked, Qb.shape[0])
+        if take <= 0:
+            break
+        od, oi = stream_topk(torch.as_tensor(Qb[:take], device="cuda"),
+                             X[rows.long()], k=K, row_ids=rows)
+        check(bool(torch.equal(oi, i[:take])),
+              f"sharded async: a degraded answer (event {e}, keep {keep}) "
+              f"differs from the survivors' search")
+        checked += take
+    check(checked == 32, f"sharded async: only {checked} degraded answers "
+                         f"to check")
+    rec["async"] = {
+        "requests": 2000, "served": served, "failed": failed,
+        "availability": served / 2000, "degraded": len(coverages),
+        "coverage_min": min(coverages), "batches": snap["counters"].get(
+            "batches"), "retried": snap["counters"].get("retried", 0),
+        "degraded_batches": len(log_batches), "oracle_checked": checked,
+        "seconds": time.perf_counter() - t0}
+    launches = read_counters()
+    force_device_count(prev)
+    del kept, eng, X
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "sharded", **rec, "launches": launches,
+                    "seconds": time.perf_counter() - t_phase}))
+    check(launches["stream_topk"] > 0 and launches["rerank_topk"] > 0
+          and launches["adc_scan"] > 0,
+          f"sharded: kernels 1, 2 and 4 must launch: {launches}")
+    return launches
+
+
 def phase_benches(torch):
-    """The sweep / tuner / compressed / serving benches at ``default``
-    scale (n = 20,000) on the card, each with the launch counts set to 0
-    before it and read after.  Every gate of each must hold (the modules
-    assert them), and kernel 4 must launch in ``bench_pq``."""
-    from repro_torch.benchmarks import (bench_engine, bench_pq, bench_sweep,
+    """The sweep / tuner / compressed / serving / sharded benches at
+    ``default`` scale (n = 20,000) on the card, each with the launch
+    counts set to 0 before it and read after.  Every gate of each must
+    hold (the modules assert theirs; ``bench_sharded`` and
+    ``bench_availability`` return theirs, checked here), and kernel 4 must
+    launch in ``bench_pq``."""
+    from repro_torch.benchmarks import (bench_availability, bench_engine,
+                                        bench_pq, bench_sharded, bench_sweep,
                                         bench_tune)
     from repro_torch.benchmarks.common import write_bench_json
 
@@ -2846,12 +3125,17 @@ def phase_benches(torch):
     total, per = {}, {}
     t0 = time.perf_counter()
     for name, mod in (("sweep", bench_sweep), ("tune", bench_tune),
-                      ("pq", bench_pq), ("serve", bench_engine)):
+                      ("pq", bench_pq), ("serve", bench_engine),
+                      ("sharded", bench_sharded),
+                      ("availability", bench_availability)):
         t_bench = time.perf_counter()
         reset_counters()
         extra = None
         if name == "pq":
             rows, extra = mod.run_with_summary("default", "cuda")
+        elif name in ("sharded", "availability"):
+            rows, gates, extra = mod.run("default", "cuda")
+            check(all(gates.values()), f"bench_{name}: gates {gates}")
         else:
             rows = mod.run("default", "cuda")
         launches = read_counters()
@@ -3349,7 +3633,10 @@ def main() -> int:
     mutate_launches = phase_mutate(torch, ds, state)
     serve_launches, kept = phase_serve(torch, ds, state)
     async_launches = phase_async(torch, ds, state, kept)
-    del state, kept
+    del kept
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(torch, ds, state)
+    del state
     torch.cuda.empty_cache()
     if before is not None:
         ads = get_dataset(ANGULAR, device="cuda")
@@ -3363,7 +3650,7 @@ def main() -> int:
     # launches over them (single-query runs apart)
     paths = {}
     for launches in (tune_launches, mutate_launches, serve_launches,
-                     async_launches):
+                     async_launches, sharded_launches):
         for kernel, count in launches.items():
             paths[kernel] = paths.get(kernel, 0) + count
 

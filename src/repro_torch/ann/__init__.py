@@ -4,7 +4,8 @@ Importing this package registers every ported algorithm with the core
 registry.  Ported so far: BruteForce, IVF, RPForest, HyperplaneLSH, E2LSH,
 BruteForceHamming, BitsamplingAnnoy, MultiIndexHashing, KNNGraph, HNSW,
 and the mutable variants MutableBruteForce and MutableIVF
-(:mod:`repro_torch.mutate`).
+(:mod:`repro_torch.mutate`), and the sharded ShardedBruteForce and
+ShardedIVF (:mod:`repro_torch.ann.sharded`).
 """
 
 from repro_torch.ann import distances, topk
@@ -21,9 +22,11 @@ from repro_torch.ann.hnsw import HNSW
 # access -- repro_torch.mutate imports back into this package) keeps the
 # cycle resolvable from either entry point
 import repro_torch.mutate  # noqa: E402,F401
+from repro_torch.ann.sharded import (ShardedBruteForce,  # noqa: E402
+                                     ShardedIVF)
 
 __all__ = [
     "distances", "topk", "BruteForce", "IVF", "RPForest", "HyperplaneLSH",
     "E2LSH", "BitsamplingAnnoy", "BruteForceHamming", "MultiIndexHashing",
-    "KNNGraph", "HNSW",
+    "KNNGraph", "HNSW", "ShardedBruteForce", "ShardedIVF",
 ]

@@ -8,6 +8,11 @@ functions take.
                               device="cpu")
     repro_torch.ann.ivf.search(st, Q, k=10, n_probes=5)
 
+A reference ``Sharded*`` state carries across the same way: its
+``[n_shards, ...]`` arrays as they are, its mesh recipe (``shard_axes``,
+``mesh_shape``) in ``static``; the port serves it on the stacked mesh
+(:mod:`repro_torch.dist.shard_state`).
+
 The function takes numpy only, so it imports nothing of JAX.
 """
 

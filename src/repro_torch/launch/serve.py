@@ -33,8 +33,14 @@ drift.  ``--index-cache`` reads and writes the reference's checkpoint
 format, so either package's file serves here.
 
 Legacy positional ``--args``/``--query-args`` are still accepted and mapped
-through the functional spec's parameter names.  ``--shards`` is accepted
-and refused: sharded serving is not ported yet.
+through the functional spec's parameter names.  ``--shards N`` serves the
+sharded variant (BruteForce -> ShardedBruteForce, IVF -> ShardedIVF) over
+N logical devices stacked on the one ``--device``
+(:mod:`repro_torch.dist.mesh`: set the count with the reference's
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``).  ``--faults``
+installs a seeded fault plan for the stream: dropped shards give degraded
+answers (``coverage < 1``), which the stream mode counts apart and leaves
+out of its recall.
 """
 
 from __future__ import annotations
@@ -61,14 +67,29 @@ _kv = parse_kv
 
 
 def apply_shards(args) -> None:
-    """``--shards N``: refused, since the port serves no sharded state
-    yet."""
+    """``--shards N``: serve the sharded variant of the algorithm over N
+    logical devices (BruteForce -> ShardedBruteForce, IVF -> ShardedIVF;
+    already-sharded algorithms just get ``n_shards`` pinned)."""
     if args.shards is None:
         return
-    raise SystemExit(
-        f"[serve] --shards {args.shards}: sharded serving is not ported "
-        f"yet (ROADMAP.md §1 item 6); serve the unsharded "
-        f"{args.algorithm} without --shards")
+    from repro_torch.dist import shard_state as SS
+    from repro_torch.dist.mesh import device_count
+
+    n = int(args.shards)
+    if n > device_count():
+        raise SystemExit(
+            f"[serve] --shards {n} needs {n} devices but only "
+            f"{device_count()} are visible; set XLA_FLAGS="
+            f"--xla_force_host_platform_device_count={n} to simulate")
+    plan = SS.SHARD_PLANS.get(args.algorithm)
+    if plan is not None:
+        args.algorithm = plan.sharded_algo
+    elif args.algorithm not in SS.sharded_algos():
+        raise SystemExit(
+            f"[serve] --shards: no sharded variant of {args.algorithm} "
+            f"(shardable: {sorted(SS.SHARD_PLANS)}, "
+            f"sharded: {list(SS.sharded_algos())})")
+    args.build = list(args.build) + [f"n_shards={n}"]
 
 
 def build_or_restore(args, ds, device) -> Engine:
@@ -237,7 +258,7 @@ def stream_loop(eng: Engine, ds, args) -> float:
                 rejected += 1
             time.sleep(gap)
         answered_ids, answered_sel = [], []
-        timed_out = failed = 0
+        timed_out = failed = degraded = 0
         for ticket, sel in inflight:
             try:
                 _, ids = ticket.result(timeout=60)
@@ -248,6 +269,9 @@ def stream_loop(eng: Engine, ds, args) -> float:
                 failed += 1            # e.g. RetriesExhausted under chaos
                 print(f"[serve] request failed: {type(e).__name__}: {e}")
                 continue
+            if ticket.partial:
+                degraded += 1
+                continue               # partial answers skew recall; report
             answered_ids.append(ids)
             answered_sel.append(sel)
     finally:
@@ -260,15 +284,18 @@ def stream_loop(eng: Engine, ds, args) -> float:
         sel = np.asarray(answered_sel)
         agg = float(np.mean(_recall_rows(ds, ds.test[sel], ids, sel, k,
                                          args.device)))
-    lat = srv.metrics.snapshot()["latency_ms"]
-    # every answer covers the whole index (no sharded states yet), so
-    # none is degraded and the recall is the full-coverage one
+    snap = srv.metrics.snapshot()
+    lat = snap["latency_ms"]
     print(f"[serve] answered {len(answered_ids)}/{args.n_requests} "
           f"(timed out {timed_out}, rejected {rejected}, failed {failed}, "
-          f"degraded 0) in {srv.metrics.counter('batches')} micro-batches; "
+          f"degraded {degraded}) in "
+          f"{srv.metrics.counter('batches')} micro-batches; "
           f"mean full-coverage recall@{k} = {agg:.3f}")
-    if failed:
-        print(f"[serve] chaos: retried={srv.metrics.counter('retried')}")
+    if degraded or failed:
+        cov = snap["coverage"]
+        print(f"[serve] chaos: retried={srv.metrics.counter('retried')} "
+              f"coverage p5={cov['p5']:.3f} p50={cov['p50']:.3f} "
+              f"min={cov['min']:.3f}")
     print(f"[serve] latency ms: p50={lat['p50']:.2f} p95={lat['p95']:.2f} "
           f"p99={lat['p99']:.2f} max={lat['max']:.2f}")
     return agg
@@ -292,7 +319,9 @@ def main(argv=None):
     p.add_argument("--query", nargs="*", default=[],
                    help="query params as key=value (comma-separable)")
     p.add_argument("--shards", type=int, default=None,
-                   help="sharded serving (not ported yet: refused)")
+                   help="serve the sharded variant of --algorithm over N "
+                        "logical devices on --device (BruteForce -> "
+                        "ShardedBruteForce, IVF -> ShardedIVF)")
     p.add_argument("--count", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--n-batches", type=int, default=8)
@@ -311,7 +340,7 @@ def main(argv=None):
                    help="admission bound: reject beyond this queue depth")
     p.add_argument("--faults", default=None,
                    help="chaos mode: seeded fault plan for the stream, "
-                        "e.g. 'seed=7,pump_death=0.01' "
+                        "e.g. 'seed=7,shard_drop=0.1,shard_raise=0.05' "
                         "(see repro_torch.serve.faults.FaultPlan.from_spec)")
     p.add_argument("--retry", default=None,
                    help="retry policy for transient faults, e.g. "

@@ -52,11 +52,10 @@ answers are copied to the host once, on the pump thread
 numpy rows, as in the reference.  A device error (a CUDA fault included)
 fails that batch's tickets and counts as ``failed``; it is never swallowed.
 
-Not yet ported (ROADMAP.md §1 item 6, sharded serving): the port's Engine
-refuses sharded states, so every answer covers the whole index.  The pump
-records a coverage of 1.0 per served request (``snapshot()`` keeps the
-reference's keys), and ``Ticket.coverage`` / ``.partial`` and the
-``degraded`` counter's increments wait for sharded states.
+A sharded tenant's micro-batch may come back degraded (the fault layer
+masked some shards): its tickets resolve with ``coverage < 1``
+(``ticket.partial``), the pump counts them as ``degraded``, and every
+served request's coverage goes into the metrics' coverage histogram.
 """
 
 from __future__ import annotations
@@ -462,7 +461,7 @@ class AsyncEngine:
             try:
                 Qb = np.stack([r.q for r in live])
                 with _on_device(eng.state):
-                    dists, ids = eng._run_padded(
+                    dists, ids, coverage = eng._run_padded(
                         eng._pad_batch(Qb), n, live[0].overrides)
                     # the one host copy of the micro-batch (waits for it)
                     dists = dists[:n].cpu().numpy()
@@ -506,10 +505,11 @@ class AsyncEngine:
         metrics.count("served", n, tenant=tenant)
         metrics.observe_many([done - r.ticket._submitted for r in live],
                              tenant=tenant)
-        # unsharded states only: every answer covers the whole index
-        metrics.observe_coverage(1.0, tenant=tenant, n=n)
+        if coverage < 1.0:
+            metrics.count("degraded", n, tenant=tenant)
+        metrics.observe_coverage(coverage, tenant=tenant, n=n)
         for i, r in enumerate(live):
-            r.ticket._resolve(dists[i], ids[i])
+            r.ticket._resolve(dists[i], ids[i], coverage=coverage)
 
     # ------------------------------------------------------------- mutation
     # Thin passthroughs to the tenant Engine's mutation surface.  They are

@@ -45,8 +45,14 @@ them and ``load`` redoes them:
     the file and set again on load, so a reference-written mutable state
     scans its delta as a port-built one does.
 
-Sharded states (``Sharded*``) are not ported yet: a file that holds one
-loads, and ``Engine`` refuses to serve it (ROADMAP.md §1 item 6).
+**Mesh portability**: sharded states (``Sharded*``) are saved exactly like
+any other state -- their ``[n_shards, ...]`` arrays go to the host and
+their ``static`` dict carries the mesh *recipe* (``shard_axes`` +
+``mesh_shape``) as plain JSON.  No device topology is in the file, so it
+restores on any host: a recipe larger than the logical device count is
+rejected by ``search`` with the reshard instruction, or resharded by
+:func:`repro_torch.dist.shard_state.ensure_servable` (the ``Engine``
+restore path).
 """
 
 from __future__ import annotations

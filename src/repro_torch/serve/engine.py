@@ -23,7 +23,15 @@ open-ended stream of variable-size requests.  ``Engine`` turns an immutable
   * **checkpointing** -- ``save()``/``load()`` round-trip through
     :mod:`repro_torch.serve.checkpoint` (the reference's versioned
     ``.npz``, readable by either package; stale/garbage files raise
-    :class:`~repro_torch.serve.checkpoint.CheckpointError`).
+    :class:`~repro_torch.serve.checkpoint.CheckpointError`);
+  * **sharded states** -- a ``Sharded*`` state is restored through
+    :func:`repro_torch.dist.shard_state.ensure_servable` (a mesh recipe
+    larger than the logical device count is resharded onto them), and
+    every micro-batch takes a ``[n_shards]`` keep-mask from
+    :func:`repro_torch.serve.faults.shard_events`: a degraded answer is
+    exact over the surviving shards and reports ``coverage < 1``
+    (``Ticket.coverage`` / ``.partial``, ``last_coverage``,
+    ``stats["degraded"]``).
 
 Query-time knobs ride along per engine (``query_params=``) and can be
 overridden per ``search()`` call or per ``submit()``-ed request; a knob
@@ -38,8 +46,6 @@ under ``max_ef`` -- answer as the reference's traced search does.
 the caller's thread when a batch fills, a ``ticket.result()`` forces one);
 background compaction runs on its own thread.  The SLO-aware pump over
 one or more Engines is :class:`~repro_torch.serve.async_engine.AsyncEngine`.
-Sharded states are not ported yet (ROADMAP.md §1 item 6): an engine
-refuses a state whose ``static`` has ``shard_axes``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ import torch
 
 from repro_torch import sync
 from repro_torch.ann.functional import IndexState, bind_search, get_functional
+from repro_torch.dist.shard_state import ensure_servable, shard_coverage
+from repro_torch.serve import faults as _faults
 from repro_torch.serve import checkpoint as _ckpt
 from repro_torch.serve.checkpoint import (ARCHIVE_VERSION,  # noqa: F401
                                           CHECKPOINT_VERSION, CheckpointError,
@@ -88,7 +96,16 @@ class Ticket(int):
         t._deadline = (None if deadline_s is None
                        else t._submitted + deadline_s)
         t.tenant = tenant
+        t.coverage: Optional[float] = None   # set at resolve; 1.0 = full
         return t
+
+    @property
+    def partial(self) -> bool:
+        """True if the answer is degraded: it was computed over a subset
+        of the index's shards (``coverage < 1``).  The merge is exact
+        over the surviving shards -- these are the best answers the live
+        shards hold, not an approximation of them."""
+        return self.coverage is not None and self.coverage < 1.0
 
     # ----------------------------------------------------------- client side
     def done(self) -> bool:
@@ -121,7 +138,9 @@ class Ticket(int):
         return (now if now is not None else time.perf_counter()) \
             > self._deadline
 
-    def _resolve(self, dists: np.ndarray, ids: np.ndarray) -> None:
+    def _resolve(self, dists: np.ndarray, ids: np.ndarray,
+                 coverage: float = 1.0) -> None:
+        self.coverage = float(coverage)
         self._value = (dists, ids)
         self._event.set()
 
@@ -174,17 +193,6 @@ class Compaction:
     def _finish(self, error: Optional[BaseException]) -> None:
         self.error = error
         self._event.set()
-
-
-def ensure_servable(state: IndexState) -> IndexState:
-    """An unsharded state, as it is; a sharded one (``static`` has
-    ``shard_axes``) raises, since the port has no sharded states yet."""
-    if state.static.get("shard_axes"):
-        raise NotImplementedError(
-            f"{state.algo}: sharded states (static 'shard_axes') are not "
-            f"served by the port yet; sharded serving is ROADMAP.md §1 "
-            f"item 6")
-    return state
 
 
 # --------------------------------------------------------------------------
@@ -241,9 +249,19 @@ class Engine:
         self._mutate_lock = threading.Lock()
         # outstanding background-compaction handles
         self._compactions: list = []
+        # sharded states thread a [n_shards] keep-mask through every
+        # micro-batch (all-True normally), so a degraded call -- some
+        # shards masked by the fault layer -- takes the same path
+        shard_axes = self.state.static.get("shard_axes")
+        self._n_shards = (int(self.state.stat("n_shards")) if shard_axes
+                          else 0)
+        self._shard_all_ok = (np.ones(self._n_shards, bool)
+                              if self._n_shards else None)
+        self.last_coverage = 1.0     # min coverage of the last search()
         self.stats = {"queries": 0, "batches": 0, "padded": 0,
                       "device_time_s": 0.0, "inserts": 0, "deletes": 0,
-                      "compactions": 0, "compaction_failures": 0}
+                      "compactions": 0, "compaction_failures": 0,
+                      "degraded": 0}
 
     # ---------------------------------------------------------- constructors
     @classmethod
@@ -260,7 +278,12 @@ class Engine:
     @classmethod
     def from_checkpoint_entry(cls, state: IndexState, extra: dict,
                               **overrides) -> "Engine":
-        """Engine from one ``checkpoint.load`` entry (state + extras)."""
+        """Engine from one ``checkpoint.load`` entry (state + extras).
+
+        Sharded states carry their mesh *recipe* in ``static``, so a
+        checkpoint written on one host serves on another: if the recipe
+        fits the logical devices it is used as-is, otherwise the state is
+        resharded onto all of them (``ensure_servable``)."""
         state = ensure_servable(state)
         kwargs = {"k": extra.get("k", 10),
                   "batch_size": extra.get("batch_size", 256),
@@ -309,13 +332,27 @@ class Engine:
     def _run_padded(self, Qb, n_live: int, overrides):
         """One fixed-shape device call: Qb is already [batch_size, d].
 
-        Returns ``(dists, ids)`` as tensors on the state's device.
-        ``self.state`` is read once, so a concurrent swap is seen whole or
-        not at all."""
+        Returns ``(dists, ids, coverage)``, the first two as tensors on
+        the state's device; coverage < 1 means the state is sharded and
+        the fault layer masked some shards for this batch (the answers are
+        exact over the surviving shards).  The fault hook runs here, once
+        a micro-batch, and its mask goes to the search as ``shard_ok``
+        (the search's own hook is off).  ``self.state`` is read once, so
+        a concurrent swap is seen whole or not at all."""
         params = dict(self.query_params)
         params.update(overrides)
         self._check_caps(params)
         state = self.state
+        coverage = 1.0
+        if self._n_shards:
+            mask = _faults.shard_events(self._n_shards)  # raises/sleeps per plan
+            if mask is None:
+                mask = self._shard_all_ok
+            else:
+                coverage = shard_coverage(state, mask)
+                self.stats["degraded"] += n_live
+            params["shard_ok"] = mask
+            params["fault_hook"] = False
         t0 = time.perf_counter()
         dists, ids = self._search(state, Qb, k=self.k, **params)
         sync(ids.device)
@@ -323,7 +360,7 @@ class Engine:
         self.stats["batches"] += 1
         self.stats["queries"] += n_live
         self.stats["padded"] += Qb.shape[0] - n_live
-        return dists, ids
+        return dists, ids, coverage
 
     def _pad_batch(self, Q: np.ndarray) -> np.ndarray:
         pad = self.batch_size - Q.shape[0]
@@ -345,11 +382,13 @@ class Engine:
             return (np.empty((0, self.k), np.float32),
                     np.empty((0, self.k), np.int32))
         ids_out, dists_out = [], []
+        self.last_coverage = 1.0
         for s in range(0, nq, self.batch_size):
             blk = Q[s:s + self.batch_size]
             live = blk.shape[0]
-            dists, ids = self._run_padded(self._pad_batch(blk), live,
-                                          overrides)
+            dists, ids, cov = self._run_padded(self._pad_batch(blk), live,
+                                               overrides)
+            self.last_coverage = min(self.last_coverage, cov)
             ids_out.append(ids[:live].cpu().numpy())
             dists_out.append(dists[:live].cpu().numpy())
         return np.concatenate(dists_out), np.concatenate(ids_out)
@@ -524,13 +563,13 @@ class Engine:
                 continue
             Qb = np.stack([q for _, q, _, _ in live_items])
             live = Qb.shape[0]
-            dists, ids = self._run_padded(self._pad_batch(Qb), live,
-                                          live_items[0][3])
+            dists, ids, cov = self._run_padded(self._pad_batch(Qb), live,
+                                               live_items[0][3])
             self._pending = rest
             ids = ids.cpu().numpy()
             dists = dists.cpu().numpy()
             for i, (ticket, _, _, _) in enumerate(live_items):
-                ticket._resolve(dists[i], ids[i])
+                ticket._resolve(dists[i], ids[i], coverage=cov)
                 self._results[int(ticket)] = ticket
 
     def _realise(self, ticket: Ticket, timeout) -> None:

@@ -41,11 +41,9 @@ Fault kinds and their hook sites:
                   is exercised end to end.
   ==============  ====================================================
 
-In the port, ``compaction_attempt`` (``mutate.delta.compact``) and
-``checkpoint_keep_bytes`` (``serve.checkpoint.save``) have their callers.
-The shard and pump hooks (``shard_events``, ``pump_tick``) are the same
-schedule logic, but nothing calls them until the port has sharded states
-and the async pump (ROADMAP.md §1, items 5 and 6).
+The port runs without a trace, so ``dist/shard_state.sharded_search``
+calls ``shard_events`` on the host on every direct call; the Engine calls
+it once a micro-batch and turns the search's own hook off.
 
 Determinism: each site keeps an event counter, and the decision for
 event ``n`` is a pure function of ``(seed, site, n[, shard])`` via a

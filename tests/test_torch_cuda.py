@@ -1253,3 +1253,58 @@ def test_embedding_bag_kernel_refuses_a_plan_for_other_operands(cuda):
         with pytest.raises(ValueError, match="does not fit"):
             embedding_bag_kernel(idx, w, table, spans, n_bags=B, plan=bad)
     assert embedding_bag_kernel.launches == before
+
+
+def _state_on_cpu(state):
+    from repro_torch.ann.functional import IndexState
+
+    return IndexState(state.algo, state.metric,
+                      {k: v.cpu() for k, v in state.arrays.items()},
+                      state.static)
+
+
+@pytest.mark.parametrize("route", ["bruteforce", "ivf", "pq"])
+def test_sharded_kernel_routes_match_plain(cuda, route):
+    """At S = 4 each sharded kernel route equals the same search on a CPU
+    copy of the state (the plain versions): kernel 1 a shard
+    (ShardedBruteForce, ``use_kernel``), kernel 2's generic entry a shard
+    (ShardedIVF, ``rerank_kernel``; every list probed, so the probe set
+    does not hang on the coarse step's rounding), kernels 4 and 2 a shard
+    (PQ, ``adc_kernel`` / ``rerank_kernel``; every row a candidate).
+    Integer rows: every distance exact, ids and distances bitwise."""
+    from repro_torch.ann import sharded
+    from repro_torch.dist.mesh import force_device_count
+    from repro_torch.kernels.adc_scan import adc_scan_kernel
+    from repro_torch.kernels.distance_topk import stream_topk_kernel
+    from repro_torch.kernels.rerank_topk import rerank_topk_kernel
+
+    rng = np.random.default_rng(9)
+    X = _ints(rng, (4003, 36)).numpy()
+    Q = _ints(rng, (131, 36)).numpy()
+    prev = force_device_count(4)
+    try:
+        if route == "bruteforce":
+            st = sharded.bruteforce_build(X, n_shards=4, device=cuda)
+            kw, counts = {"use_kernel": True}, {stream_topk_kernel: 4}
+            search = sharded.bruteforce_search
+        elif route == "ivf":
+            st = sharded.ivf_build(X, n_clusters=16, n_shards=4,
+                                   rerank_kernel=True, device=cuda)
+            kw, counts = {"n_probes": 16}, {rerank_topk_kernel: 4}
+            search = sharded.ivf_search
+        else:
+            st = sharded.bruteforce_build(
+                X, n_shards=4, quantize={"pq": {"m": 6}}, adc_kernel=True,
+                rerank_kernel=True, device=cuda)
+            kw = {}
+            counts = {adc_scan_kernel: 4, rerank_topk_kernel: 4}
+            search = sharded.bruteforce_search
+        before = {fn: fn.launches for fn in counts}
+        gd, gi = search(st, torch.as_tensor(Q, device=cuda), k=10, **kw)
+        torch.cuda.synchronize()
+        assert {fn: fn.launches - before[fn] for fn in counts} == counts
+        wd, wi = search(_state_on_cpu(st), Q, k=10, **kw)
+        assert torch.equal(gi.cpu(), wi)
+        torch.testing.assert_close(gd.cpu(), wd, rtol=0, atol=0)
+    finally:
+        force_device_count(prev)

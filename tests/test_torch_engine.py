@@ -395,16 +395,39 @@ def test_engine_recall_gate(small_dataset):
     assert eng.stats["queries"] == 320 and eng.stats["batches"] == 5
 
 
-def test_engine_refuses_sharded_states(ivf_pair):
-    """The port has no sharded states: a state whose static names shard
-    axes is refused, by the constructor and the checkpoint entry."""
-    _, st = ivf_pair
-    sharded = type(st)(st.algo, st.metric, st.arrays,
-                       {**st.static, "shard_axes": ("shards",)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        Engine(sharded)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        Engine.from_checkpoint_entry(sharded, {})
+def test_engine_refuses_sharded_states(ivf_pair, grid_data, tmp_path):
+    """Sharded states are served (the name is kept from when the port
+    refused them): an 8-shard ShardedIVF on the IVF state, built in the
+    port and through a reference-written checkpoint, answers bit for bit
+    as the direct sharded search, by the constructor and the checkpoint
+    entry, at full coverage."""
+    from repro.ann import sharded as jx_sh
+    from repro_torch.ann import sharded as port_sh
+    from repro_torch.dist import shard_state
+    from repro_torch.dist.mesh import force_device_count
+
+    jst, st = ivf_pair
+    _, Q = grid_data
+    prev = force_device_count(8)
+    try:
+        st8 = shard_state.shard_index(st, n_shards=8)
+        want = port_sh.ivf_search(st8, Q, k=K, n_probes=8)
+        for eng in (Engine(st8, k=K, query_params={"n_probes": 8}),
+                    Engine.from_checkpoint_entry(
+                        st8, {"k": K, "query_params": {"n_probes": 8}})):
+            assert_same(eng.search(Q), (want[0].numpy(), want[1].numpy()))
+            assert eng.last_coverage == 1.0 and eng.stats["degraded"] == 0
+        path = tmp_path / "sh1.ckpt"
+        jx_ckpt.save(path, jx_sh.SS.shard_index(jst, n_shards=1))
+        eng = Engine.load(path, device="cpu", k=K,
+                          query_params={"n_probes": 8})
+        assert eng.state.algo == "ShardedIVF"
+        want = port_sh.ivf_search(eng.state, Q, k=K, n_probes=8)
+        assert_same(eng.search(Q), (want[0].numpy(), want[1].numpy()))
+        assert_same(eng.search(Q), JxEngine.load(
+            path, k=K, query_params={"n_probes": 8}).search(Q))
+    finally:
+        force_device_count(prev)
 
 
 def test_autotune_adopts_the_chosen_point(ivf_pair, grid_data):

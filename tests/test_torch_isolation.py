@@ -48,7 +48,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve.retry", "repro_torch.serve.metrics",
             "repro_torch.serve.async_engine",
             "repro_torch.launch.serve",
-            "repro_torch.benchmarks.sweep_serving"} <= set(mods)
+            "repro_torch.benchmarks.sweep_serving", "repro_torch.dist",
+            "repro_torch.dist.mesh", "repro_torch.dist.wire",
+            "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+            "repro_torch.dist.shard_state",
+            "repro_torch.dist.grad_compression",
+            "repro_torch.dist.compression", "repro_torch.ann.sharded",
+            "repro_torch.benchmarks.bench_sharded",
+            "repro_torch.benchmarks.bench_availability"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -95,6 +102,8 @@ def _entry_points(tmp_path):
     from repro_torch.launch import tune as tune_cli
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import AsyncEngine, Engine, checkpoint, load_state
+    from repro_torch.ann import sharded
+    from repro_torch.benchmarks import bench_availability, bench_sharded
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -177,6 +186,13 @@ def _entry_points(tmp_path):
             ["--dataset", "blobs-euclidean-300", "--build", "n_clusters=4",
              "--n-batches", "1", "--batch-size", "8"]
             + ([] if dev is None else ["--device", dev])),
+        "sharded.bruteforce_build": lambda dev: sharded.bruteforce_build(
+            X, n_shards=1, device=dev),
+        "sharded.ivf_build": lambda dev: sharded.ivf_build(
+            X, n_clusters=4, n_shards=1, device=dev),
+        "bench_sharded": lambda dev: bench_sharded.run("smoke", dev),
+        "bench_availability": lambda dev: bench_availability.run("smoke",
+                                                                  dev),
     }
 
 
@@ -214,7 +230,8 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "MutableBruteForce build", "MutableIVF build", "launch.tune",
                 "bench_sweep", "Engine.build", "Engine.load",
                 "checkpoint.load", "load_state", "AsyncEngine.load",
-                "launch.serve"]
+                "launch.serve", "sharded.bruteforce_build",
+                "sharded.ivf_build", "bench_sharded", "bench_availability"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -1,7 +1,7 @@
 """The port's algorithm listings (``repro_torch.core.registry.available``,
 ``repro_torch.ann.functional.available_functional``) against the JAX
 package's: both name the same algorithms, and they are the reference's
-minus the families not ported yet."""
+minus the families not ported yet (none since the sharded specs)."""
 
 import pytest
 
@@ -15,8 +15,8 @@ from repro_torch.core.interface import BaseANN  # noqa: E402
 from repro_torch.core.registry import available, resolve  # noqa: E402
 
 # The reference's algorithms that the port does not have yet (ROADMAP §1):
-# the sharded specs.
-NOT_PORTED = {"ShardedBruteForce", "ShardedIVF"}
+# none; the sharded specs were the last.
+NOT_PORTED = set()
 
 
 def test_port_listings_agree():

@@ -10,7 +10,8 @@ JAX package's ``repro.launch.serve``.
     against a float32 oracle over the live rows, so a query with a near
     tie at the k-th place may move it by one id in either CLI; the test
     counts such queries and holds every other one equal.
-  * ``--shards`` is refused with a text that names the roadmap item.
+  * ``--shards N`` serves the sharded variant on N logical devices; above
+    the logical device count it stops with the reference's text.
 
 No test sleeps: the stream mode's Poisson gaps are made negligible with a
 high ``--rate``.
@@ -175,11 +176,39 @@ def test_cli_recall_equals_reference(mode, shared_cache, capsys):
 
 
 def test_cli_refuses_shards_and_frozen_churn(shared_cache, capsys):
-    with pytest.raises(SystemExit, match=r"--shards 2: sharded serving is "
-                                         r"not ported yet \(ROADMAP\.md §1 "
-                                         r"item 6\)"):
-        serve.main(["--dataset", DATASET, "--shards", "2",
-                    "--device", "cpu"])
+    """``--shards`` above the logical device count stops with the
+    reference's text (one device in both packages here); on 2 logical
+    devices ``--shards 2`` serves ShardedIVF, also with a fault plan in
+    stream mode; a frozen algorithm's churn is refused."""
+    from repro_torch.dist.mesh import force_device_count
+
+    shards = ["--dataset", DATASET, "--build", "n_clusters=8", "--query",
+              "n_probes=8", "--shards", "2", "--batch-size", "8"]
+    with pytest.raises(SystemExit) as exc:
+        serve.main(shards + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as jexc:
+        jx_serve.main(shards)
+    assert str(exc.value) == str(jexc.value)
+    assert "--shards 2 needs 2 devices but only 1 are visible" \
+        in str(exc.value)
+    prev = force_device_count(2)
+    try:
+        capsys.readouterr()
+        agg = serve.main(shards + ["--n-batches", "2", "--device", "cpu"])
+        assert "built ShardedIVF index" in capsys.readouterr().out
+        assert agg == 1.0                    # every list probed: exact
+        serve.main(shards + ["--mode", "stream", "--n-requests", "48",
+                             "--rate", "1e6", "--faults",
+                             "seed=1,shard_drop=0.5", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert re.search(r"answered \d+/48 \(timed out 0, rejected 0, "
+                         r"failed 0, degraded [1-9]\d*\)", out), out
+        assert "chaos: retried=0 coverage p5=" in out
+        with pytest.raises(SystemExit, match="no sharded variant of HNSW"):
+            serve.main(["--dataset", DATASET, "--algorithm", "HNSW",
+                        "--shards", "2", "--device", "cpu"])
+    finally:
+        force_device_count(prev)
     argv = ["--dataset", DATASET, "--build", "n_clusters=8", "--mode",
             "churn", "--n-batches", "1", "--batch-size", "8"]
     with pytest.raises(SystemExit) as exc:

@@ -49,7 +49,7 @@ NQ = 16
 RTOL, ATOL = 1e-5, 1e-4
 # algorithms whose query path thresholds no float: ids bit for bit
 EXACT = {"IVF", "MutableIVF", "BitsamplingAnnoy", "MultiIndexHashing"}
-PORTED = sorted(n for n in SWEEP_CASES if n != "ShardedIVF")
+PORTED = sorted(SWEEP_CASES)
 
 
 def _carry(ref) -> IndexState:
