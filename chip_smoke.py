@@ -141,6 +141,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     times and the merge tree's share, and an 8-shard Engine through the
     pump under seeded shard drops and raises (every ticket resolved, 32
     degraded answers equal to the survivors' search).
+    Then the ``lm`` phase (``phase_lm``, no TPU kernel on its path: the
+    seven kernels' counts must stay 0): the LM serving path
+    (``repro_torch.models.transformer``) at the published widths in bf16,
+    weights drawn on the card: phi-4-mini-3.8b whole (prefill of 16 x
+    2,048 tokens, 64 greedy decode steps over a 4,096-slot cache, one
+    step traced), gemma3-27b, qwen1.5-32b, moonshot-v1-16b-a3b and
+    deepseek-v2-236b at cut depth (prefill of 4 x 2,048, 16 decode
+    steps); prefill against stepwise decode, the card against the CPU on
+    the same weights at 2 layers, and the MoE ep path on a stacked mesh
+    against the local path.
     Recall is the repo's own distance-based measure against exact ground
     truth (``torch.matmul`` or popcount + stable top-k, no kernel).  Exact
     algorithms must give 1.0, every other recall must lie in (0, 1] and
@@ -186,6 +196,7 @@ Datasets are cached under ``build/data`` beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1777,6 +1788,9 @@ def phase_embedding_bag(torch, peaks, before):
     return recs[0]
 
 
+PROFILE_TRIES = 3        # traces of one call before an empty one fails
+
+
 def profile_call(torch, fn, count: bool = False):
     """One call of ``fn`` under ``torch.profiler``, after one call under
     it that is not read (the profiler's own first-launch cost): the device
@@ -1786,8 +1800,22 @@ def profile_call(torch, fn, count: bool = False):
     window (ms); with ``count``, also the number of device kernels and
     copies in the window.  Read from the profiler's raw events, which hold
     the device work of torch's own ops as well as that of the port's
-    kernels.  Fails if the trace holds no device activity in the
-    window."""
+    kernels.  A trace whose window holds no device activity is logged and
+    taken again (the profiler has returned such a trace for a call whose
+    kernels ran); it fails after ``PROFILE_TRIES`` of them."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        out = _profile_once(torch, fn)
+        if out is not None:
+            break
+        log(json.dumps({"phase": "profiler", "empty_trace": attempt}))
+    check(out is not None, f"profiler: {PROFILE_TRIES} traces of the call "
+                           f"hold no device activity")
+    return out if count else out[:3]
+
+
+def _profile_once(torch, fn):
+    """(by_name, idle, window_ms, launches) of one trace, or None where
+    the window holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1810,15 +1838,15 @@ def profile_call(torch, fn, count: bool = False):
             continue
         by_name[e.name()] = by_name.get(e.name(), 0.0) + (t1 - t0) / 1e6
         spans.append((max(t0, w0), min(t1, w1)))
-    check(bool(spans), "profiler: the trace holds no device activity")
+    if not spans:
+        return None
     busy, reach = 0, w0
     for t0, t1 in sorted(spans):
         t0 = max(t0, reach)
         if t1 > t0:
             busy += t1 - t0
             reach = t1
-    out = (by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e6)
-    return out + (len(spans),) if count else out
+    return by_name, 1.0 - busy / (w1 - w0), (w1 - w0) / 1e6, len(spans)
 
 
 def decode_case(torch, peaks, q, k, v, lengths, label):
@@ -3109,6 +3137,385 @@ def phase_sharded(torch, ds, ivf_state):
     return launches
 
 
+# The LM serving path (``phase_lm``): the published configs at full width.
+LM_ARCHS = ("phi4-mini-3.8b", "gemma3-27b", "qwen1.5-32b",
+            "moonshot-v1-16b-a3b", "deepseek-v2-236b")
+# Layers each runs with in the lm phase (None: the published depth) and
+# why: gemma3 one 5 local : 1 global period, moonshot 1 dense + 2 MoE,
+# deepseek 1 dense + 1 MoE.
+LM_DEPTH = {"phi4-mini-3.8b": None, "gemma3-27b": 6, "qwen1.5-32b": 2,
+            "moonshot-v1-16b-a3b": 3, "deepseek-v2-236b": 2}
+# phi-4-mini's cut of LM_SHAPES["decode_32k"] (B = 128, S = 32,768)
+LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 16, 2048, 4096, 64
+# the other four: prefill at S = 2,048, then 16 decode steps
+LM_OTHER_BATCH, LM_OTHER_STEPS = 4, 16
+# the card against the CPU (B = 2): the prompt's length, and on the MoE
+# configs one with 2 x 768 x top_k 6 = 9,216 routed pairs, above the
+# 8,192 where ``moe`` leaves the gather path for the local one
+LM_CPU_PROMPT, LM_CPU_MOE_PROMPT = 32, 768
+# Dense bf16 tensor-core peaks (NVIDIA's data sheets, no sparsity).
+BF16_PEAK = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+# Tolerances of the lm phase's checks: prefill of a 64-token prompt
+# against stepwise decode in fp32, elementwise, the reference's own
+# (tests/test_models_smoke.py::test_lm_prefill_matches_decode, whose
+# configs are fp32); the card against the CPU on the same weights in
+# fp32, elementwise with an atol of 2^-20 x the largest logit (a logit's
+# rounding error follows the size of the products it sums: full-width
+# logits reach ~2,000; on an H100 phi-4-mini's 2-layer cut differed by
+# 4.9e-4 = 2^-22.1 x 2,162, so the limit is ~4x the reading) and by norm
+# within 1e-5 (read: 6.7e-7); in bf16 (both checks) the norm of the difference
+# relative to the norm of the logits, since the two sides round at other
+# points (flash against decode, cuBLAS against the CPU) and a logit's
+# error follows the whole hidden vector's; the ep path against the local
+# path: two bf16 ulps (as tests/test_torch_lm_layers.py holds bf16
+# outputs to the reference).
+LM_PREFILL_TOL = 2e-2
+LM_CPU_F32_ATOL, LM_CPU_F32_REL = 2.0 ** -20, 1e-5
+LM_CPU_BF16_REL = 2.0 ** -5
+LM_EP_TOL = 2.0 ** -6
+
+
+def lm_tokens(torch, vocab: int, shape, seed: int):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=g, device="cuda")
+
+
+def lm_fill(T, cfg, prefilled, batch: int, max_seq: int, device):
+    """``init_cache(cfg, batch, max_seq)`` with prefill's caches copied
+    into its first slots (a local run's ring whole)."""
+    caches = T.init_cache(cfg, batch, max_seq, device=device)
+    for run, pre in zip(caches, prefilled):
+        for c, p in zip(run, pre):
+            c[:, :, :p.shape[2]] = p
+    return caches
+
+
+def lm_prefill_vs_decode(torch, T, params, cfg, n: int = 64):
+    """Prefill of an n-token prompt against n ``serve_step`` calls from an
+    empty cache (B = 1), on the weights as drawn (the config's bf16) and
+    cast to fp32 (the dtype of the reference's own test): the largest
+    |diff|, its largest excess over rtol * |decode| (fp32: at most atol,
+    both LM_PREFILL_TOL) and |diff| / |decode| by norm (bf16: at most
+    LM_CPU_BF16_REL)."""
+    toks = lm_tokens(torch, cfg.vocab, (1, n), 7)
+    out = {}
+    for dtype in (cfg.dtype, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = params if dtype == cfg.dtype else \
+            T._map_leaves(lambda t: t.to(dtype), params)
+        pre, _ = T.prefill_step(p, c, toks)
+        caches = T.init_cache(c, 1, n, device="cuda")
+        for t in range(n):
+            step, caches = T.serve_step(p, c, toks[:, t:t + 1], caches, t)
+        check(bool(torch.isfinite(pre).all() and torch.isfinite(step).all()),
+              f"lm {cfg.name}: non-finite logits")
+        diff, excess = within(torch, pre, step, LM_PREFILL_TOL,
+                              LM_PREFILL_TOL)
+        rel = float((pre - step).norm() / step.norm())
+        key = str(dtype).replace("torch.", "")
+        out[key] = {"max_abs_diff": diff, "excess": excess, "rel_norm": rel,
+                    "logit_scale": float(step.abs().max()),
+                    "elementwise_ok": excess <= LM_PREFILL_TOL}
+        out[key]["ok"] = (out[key]["elementwise_ok"] if dtype == torch.float32
+                          else rel <= LM_CPU_BF16_REL)
+        del p, caches
+    return out
+
+
+def lm_serve(torch, T, params, cfg, batch: int, steps: int, max_seq: int):
+    """prefill_step on [batch, LM_PROMPT] tokens, its caches copied into
+    a cache of ``max_seq`` slots, then ``steps`` greedy ``serve_step``
+    calls: times (host clock around work ending in a sync), finite
+    logits."""
+    toks = lm_tokens(torch, cfg.vocab, (batch, LM_PROMPT), 11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = T.prefill_step(params, cfg, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"lm {cfg.name}: non-finite prefill logits")
+    caches = lm_fill(T, cfg, pre, batch, max_seq, "cuda")
+    del pre
+    tok = logits.argmax(-1, keepdim=True)
+    ms = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, caches = T.serve_step(params, cfg, tok, caches,
+                                      LM_PROMPT + i)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits).all()),
+          f"lm {cfg.name}: non-finite decode logits")
+    med = sorted(ms)[len(ms) // 2]
+    rec = {"batch": batch, "prompt": LM_PROMPT, "cache_slots": max_seq,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * LM_PROMPT / prefill_s,
+           "decode_steps": steps, "decode_ms_median": med,
+           "decode_ms_min": min(ms), "decode_ms_max": max(ms),
+           "decode_tokens_per_s": batch / (med / 1e3)}
+    return rec, caches, tok
+
+
+def lm_bounds(T, cfg, params, batch: int, slots: int, peaks, bf16_peak):
+    """The least time of one decode step and of the prefill, from shapes:
+    a step reads every weight once (the tied embedding as the output
+    layer) and each GQA cache in bf16, and the reference's score einsum
+    writes and reads an fp32 copy of K (``ck.astype(float32)``); the
+    prefill does 2 FLOP a weight a token in bf16, and the flash loop's
+    every (q, kv) block pair in fp32 (4 B H S^2 dh a layer, no block
+    skipping)."""
+    leaves = lm_leaves(T, params)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = sum(t.numel() for t in leaves)
+    kv = (batch * slots * cfg.n_kv_heads * cfg.d_head * cfg.n_layers
+          if cfg.attn == "gqa" else 0)
+    cache_bytes = 2 * kv * 2
+    copy_bytes = 2 * kv * 4
+    step_s = (w_bytes + cache_bytes + copy_bytes) / peaks[1]
+    n_embed = cfg.vocab * cfg.d_model
+    tokens = batch * LM_PROMPT
+    bf16_flops = 2 * tokens * (n_params - n_embed) \
+        + 2 * batch * cfg.d_model * cfg.vocab
+    f32_flops = 4 * batch * cfg.n_heads * LM_PROMPT ** 2 * cfg.d_head \
+        * cfg.n_layers
+    prefill_s = bf16_flops / bf16_peak + f32_flops / peaks[0]
+    return {"weight_bytes": w_bytes, "cache_bytes": cache_bytes,
+            "fp32_copy_bytes": copy_bytes,
+            "decode_bound_ms": step_s * 1e3,
+            "decode_bound_no_copy_ms":
+                (w_bytes + cache_bytes) / peaks[1] * 1e3,
+            "prefill_bf16_flops": bf16_flops, "prefill_fp32_flops": f32_flops,
+            "prefill_bound_s": prefill_s}
+
+
+def lm_leaves(T, params) -> list:
+    out = []
+    T._map_leaves(out.append, params)
+    return out
+
+
+def lm_card_vs_cpu(torch, T, cfg):
+    """The config cut to 2 layers: B = 2, a prompt of LM_CPU_PROMPT tokens
+    (LM_CPU_MOE_PROMPT on a MoE config, so that its prefill takes the
+    local path on both devices) and 4 greedy decode steps on the card and
+    on the CPU on the same weights (drawn on the card, copied); every
+    logits row compared."""
+    cut = dataclasses.replace(cfg, n_layers=2)
+    n = LM_CPU_PROMPT if cfg.moe_cfg is None else LM_CPU_MOE_PROMPT
+    params = T.init(3, cut, device="cuda")
+    host = T._map_leaves(lambda t: t.cpu(), params)
+    toks = lm_tokens(torch, cut.vocab, (2, n), 9)
+
+    def run(dev, p, feed):
+        # feed: the logits whose greedy tokens go in (the card's, so both
+        # devices decode the same tokens); None: this run's own
+        t0 = time.perf_counter()
+        logits, pre = T.prefill_step(p, cut, toks.to(dev))
+        caches = lm_fill(T, cut, pre, 2, n + 4, dev)
+        rows = [logits]
+        for i in range(4):
+            src = logits if feed is None else feed[i]
+            logits, caches = T.serve_step(
+                p, cut, src.argmax(-1, keepdim=True).to(dev), caches, n + i)
+            rows.append(logits)
+        rows = [r.cpu() for r in rows]
+        return rows, time.perf_counter() - t0
+
+    card, card_s = run("cuda", params, None)
+    host_rows, cpu_s = run("cpu", host, card)
+    got, want = torch.stack(card), torch.stack(host_rows)
+    check(bool(torch.isfinite(got).all()), f"lm {cfg.name}: card logits")
+    rec = {"dtype": str(cut.dtype).replace("torch.", ""), "prompt": n,
+           "max_abs_diff": float((got - want).abs().max()),
+           "rel_norm": float((got - want).norm() / want.norm()),
+           "logit_scale": float(want.abs().max()),
+           "card_s": card_s, "cpu_s": cpu_s}
+    if cut.dtype == torch.float32:
+        atol = LM_CPU_F32_ATOL * rec["logit_scale"]
+        rec["tol"] = (f"elementwise |card - cpu| <= 2^-20 x max |cpu| = "
+                      f"{atol:.4g} and |card - cpu| / |cpu| <= "
+                      f"{LM_CPU_F32_REL}")
+        rec["ok"] = (rec["max_abs_diff"] <= atol
+                     and rec["rel_norm"] <= LM_CPU_F32_REL)
+    else:
+        rec["tol"] = f"|card - cpu| / |cpu| <= {LM_CPU_BF16_REL}"
+        rec["ok"] = rec["rel_norm"] <= LM_CPU_BF16_REL
+    del params, host
+    return rec
+
+
+def lm_ep(torch, cfg):
+    """One MoE layer of ``cfg`` at full width on 8,192 tokens: ``moe`` on
+    the ep path (a stacked mesh, model = 8, capacity E / k a token so that
+    nothing drops) against the local path on the same weights."""
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.models import moe as M
+
+    mcfg = cfg.moe_config()
+    ep_cfg = dataclasses.replace(
+        mcfg, path="ep", capacity_factor=mcfg.n_experts / mcfg.top_k)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    params = M.init_moe(gen, mcfg, cfg.dtype)
+    x = torch.randn((1, 8192, cfg.d_model), generator=gen, device="cuda"
+                    ).to(cfg.dtype)
+    mesh = Mesh((8,), ("model",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = M.moe(params, ep_cfg, x, mesh=mesh)
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    want, _ = M.moe(params, mcfg, x)
+    scale = float(want.abs().max())
+    diff, excess = within(torch, got, want, LM_EP_TOL, LM_EP_TOL * scale)
+    rec = {"tokens": 8192, "experts": mcfg.n_experts, "mesh": "model=8",
+           "capacity_factor": ep_cfg.capacity_factor,
+           "max_abs_diff": diff,
+           "tol": f"rtol {LM_EP_TOL}, atol {LM_EP_TOL} x {scale:.4g}",
+           "ep_s": ep_s, "ok": excess <= LM_EP_TOL * scale}
+    del params, x, got, want
+    return rec
+
+
+def phase_lm(torch, peaks, smi_line):
+    """The LM serving path (``repro_torch.models.transformer``) at the
+    published widths, weights drawn on the card from fixed seeds in the
+    configs' bf16 (no TPU kernel lies on it: the launch counts of the
+    seven kernels are set to 0 before and must read 0 after):
+      1. phi-4-mini-3.8b, the whole published config (32 layers): prefill
+         of 16 prompts of 2,048 tokens, its caches copied into
+         ``init_cache(cfg, 16, 4096)``, then 64 greedy ``serve_step``
+         calls from cache_len 2,048 (prefill tokens/s, decode ms a step
+         and tokens/s, peak memory, the step's bound from its bytes), and
+         one step traced (``profile_call``);
+      2. gemma3-27b (6 layers: a 5 local : 1 global period, the 1,024-slot
+         ring wrapped), qwen1.5-32b (2 layers, qkv bias), moonshot (3: 1
+         dense + 2 MoE of 64 experts), deepseek-v2 (2: 1 dense + 1 MoE of
+         160 experts, MLA), full width: prefill of 4 x 2,048 tokens (the
+         MoE layers take the local path), 16 decode steps (the gather
+         path);
+      3. checks: finite logits; for each config at its phase depth a
+         64-token prefill equals stepwise decode (fp32: rtol = atol =
+         2e-2, the reference's test; bf16: by norm); each config cut to
+         2 layers on the card equals the CPU on the same weights (B = 2,
+         a 32-token prompt, 768 on the MoE configs so that the local path
+         runs on both devices, 4 decode steps; phi-4-mini also in fp32,
+         under LM_CPU_F32_ATOL / LM_CPU_F32_REL); one
+         moonshot MoE layer on the ep path (stacked mesh, model = 8,
+         8,192 tokens, nothing dropped) equals the local path."""
+    from repro_torch.benchmarks.common import form_factor
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    bf16_peak = BF16_PEAK[form_factor(card)]
+    reduced = {
+        "phi4-mini-3.8b": (
+            f"batch {LM_BATCH} x prompt {LM_PROMPT} (cache {LM_MAX_SEQ} "
+            f"slots) cut from decode_32k's 128 x 32,768: its bf16 KV cache "
+            f"alone would take 2 x 32 layers x 128 x 32,768 x 8 x 128 x 2 "
+            f"B = 550 GB"),
+        "gemma3-27b": "6 of 62 layers", "qwen1.5-32b": "2 of 64 layers",
+        "moonshot-v1-16b-a3b": "3 of 48 layers",
+        "deepseek-v2-236b": "2 of 60 layers"}
+    log(json.dumps({"phase": "lm", "card": smi_line, "reduced": reduced}))
+    paths = {"local": 0, "gather": 0, "ep": 0}
+    real = {name: getattr(M, f"_experts_{name}") for name in paths}
+
+    def counted(name):
+        def fn(*args):
+            paths[name] += 1
+            return real[name](*args)
+        return fn
+
+    for name in paths:
+        setattr(M, f"_experts_{name}", counted(name))
+    reset_counters()
+    rec = {}
+    try:
+        for arch in LM_ARCHS:
+            cfg = get_arch(arch).make_config()
+            if LM_DEPTH[arch] is not None:
+                cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = T.init(0, cfg, device="cuda")
+            torch.cuda.synchronize()
+            r = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+                 "params": sum(t.numel() for t in lm_leaves(T, params))}
+            before = dict(paths)
+            r["prefill_vs_decode"] = lm_prefill_vs_decode(torch, T, params,
+                                                          cfg)
+            full = arch == "phi4-mini-3.8b"
+            batch = LM_BATCH if full else LM_OTHER_BATCH
+            steps = LM_STEPS if full else LM_OTHER_STEPS
+            slots = LM_MAX_SEQ if full else LM_PROMPT + steps
+            serve, caches, tok = lm_serve(torch, T, params, cfg, batch,
+                                          steps, slots)
+            r.update(serve)
+            if cfg.moe_cfg is not None:
+                r["moe_paths"] = {k: paths[k] - before[k] for k in paths}
+                check(r["moe_paths"]["local"] > 0
+                      and r["moe_paths"]["gather"] > 0,
+                      f"lm {arch}: MoE paths taken {r['moe_paths']}")
+            if full:
+                r.update(lm_bounds(T, cfg, params, batch, LM_MAX_SEQ, peaks,
+                                   bf16_peak))
+                by_name, idle, window, launches = profile_call(
+                    torch, lambda: T.serve_step(params, cfg, tok, caches,
+                                                LM_PROMPT + steps),
+                    count=True)
+                r["trace"] = {"window_ms": window,
+                              "device_ms": sum(by_name.values()),
+                              "idle": idle, "launches": launches,
+                              "top": top_device_ms(by_name, 12)}
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del params, caches, tok
+            torch.cuda.empty_cache()
+            before = dict(paths)
+            r["card_vs_cpu"] = [lm_card_vs_cpu(torch, T, cfg)]
+            if cfg.moe_cfg is not None:
+                # the prefill on both devices, the decode steps on both
+                taken = {k: paths[k] - before[k] for k in paths}
+                r["card_vs_cpu"][0]["moe_paths"] = taken
+                check(taken["local"] >= 2 and taken["gather"] >= 8,
+                      f"lm {arch}: card against CPU took {taken}")
+            if full:
+                r["card_vs_cpu"].append(lm_card_vs_cpu(
+                    torch, T, dataclasses.replace(cfg, dtype=torch.float32)))
+            torch.cuda.empty_cache()
+            log(json.dumps({"phase": "lm", "arch": arch, **r}))
+            rec[arch] = r
+        ep = lm_ep(torch, get_arch("moonshot-v1-16b-a3b").make_config())
+        log(json.dumps({"phase": "lm", "ep": ep}))
+    finally:
+        for name in paths:
+            setattr(M, f"_experts_{name}", real[name])
+    launches = read_counters()
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "lm", "kernel_launches": launches,
+                    "note": "the LM path launches none of the seven "
+                            "kernels (no TPU kernel lies on it)",
+                    "seconds": time.perf_counter() - t_phase}))
+    check(not any(launches.values()),
+          f"lm: the LM path launched a counted kernel: {launches}")
+    for arch, r in rec.items():
+        for dtype, pvd in r["prefill_vs_decode"].items():
+            check(pvd["ok"], f"lm {arch}: prefill differs from stepwise "
+                             f"decode in {dtype}: {pvd}")
+        for c in r["card_vs_cpu"]:
+            check(c["ok"], f"lm {arch}: card against CPU ({c['dtype']}): "
+                           f"{c} outside {c['tol']}")
+    check(ep["ok"] and paths["ep"] == 1,
+          f"lm: the ep path against the local path: {ep}")
+
+
 def phase_benches(torch):
     """The sweep / tuner / compressed / serving / sharded benches at
     ``default`` scale (n = 20,000) on the card, each with the launch
@@ -3386,17 +3793,57 @@ def kept_builds(names):
         FUNCTIONAL.update(saved)
 
 
-def graph_agreement(torch, label, mod, state, Q, efs=(16, 64),
+TIE_REL = 2.0 ** -17     # a near tie: float64 distances within this share
+
+
+def distances64(train, q, ids, metric: str) -> np.ndarray:
+    """Float64 distances from query ``q`` to rows ``ids`` of ``train``:
+    squared l2 for euclidean, 1 - cos for angular."""
+    x = np.asarray(train)[ids].astype(np.float64)
+    q = np.asarray(q, dtype=np.float64)
+    if metric == "euclidean":
+        return ((x - q) ** 2).sum(-1)
+    if metric == "angular":
+        return 1.0 - x @ q / (np.linalg.norm(x, axis=-1) * np.linalg.norm(q))
+    raise ValueError(f"no float64 distance for metric {metric!r}")
+
+
+def agree_within_ties(gi, ci, train, Q, metric: str,
+                      rel: float = TIE_REL) -> np.ndarray:
+    """[n] bool: query i's two id lists ([n, k], numpy) are equal, or
+    differ only at ranks where the two ids lie at one float64 distance
+    from the query within ``rel`` of it -- a near tie that the card's and
+    the CPU's fp32 roundings decided each its own way.  A swap of ids at
+    distances further apart, or an id at no near-equal distance, is a
+    disagreement."""
+    gi, ci = np.asarray(gi), np.asarray(ci)
+    ok = (gi == ci).all(axis=1)
+    for i in np.flatnonzero(~ok):
+        cols = np.flatnonzero(gi[i] != ci[i])
+        a, b = gi[i, cols], ci[i, cols]
+        if (a < 0).any() or (b < 0).any():
+            continue
+        da = distances64(train, Q[i], a, metric)
+        db = distances64(train, Q[i], b, metric)
+        ok[i] = bool((np.abs(da - db)
+                      <= rel * np.maximum(np.abs(da), np.abs(db))).all())
+    return ok
+
+
+def graph_agreement(torch, label, mod, state, ds, efs=(16, 64),
                     n: int = 100):
-    """The first ``n`` queries searched on the card and on a CPU copy of
-    the same state (its tensors as numpy arrays, through
+    """The first ``n`` queries of ``ds`` searched on the card and on a CPU
+    copy of the same state (its tensors as numpy arrays, through
     ``state_from_reference``), at each ef of ``efs``: through the static
     path (ids and expansions) and through the grid sweep the runner times
     (``search_sweep_points``: ef a 0-d tensor under ``max_ef``, ids).  At
-    least 99 of 100 queries must agree on each; each static query that
-    differs is logged with its first differing id and distance.  The graph
-    family has no kernel and so no plain version to hold one against: this
-    check stands in."""
+    least 99 of 100 queries must agree on each: equal expansions, and ids
+    equal or differing only at near ties (``agree_within_ties``: the fp32
+    distance of a point rounds differently on the two devices, so two
+    points at one distance may be ordered either way).  Each static query
+    whose ids differ is logged with its first differing id and distance.
+    The graph family has no kernel and so no plain version to hold one
+    against: this check stands in."""
     from repro_torch.ann.functional import search_sweep_points
     from repro_torch.convert import state_from_reference
 
@@ -3404,8 +3851,8 @@ def graph_agreement(torch, label, mod, state, Q, efs=(16, 64),
               else v.cpu().numpy() for k, v in state.arrays.items()}
     cpu = state_from_reference(state.algo, state.metric, arrays,
                                state.static, device="cpu")
-    n = min(n, len(Q))
-    q = np.asarray(Q[:n])
+    n = min(n, len(ds.test))
+    q = np.asarray(ds.test[:n])
     points = [{"ef": ef} for ef in efs]
     gsi = search_sweep_points(state, q, k=K, points=points)[1].cpu()
     csi = search_sweep_points(cpu, q, k=K, points=points)[1]
@@ -3415,32 +3862,37 @@ def graph_agreement(torch, label, mod, state, Q, efs=(16, 64),
             state, q, k=K, ef=ef))
         cd, ci, cit = mod.search_with_stats(cpu, q, k=K, ef=ef)
         same = (gi == ci).all(dim=1) & (git == cit)
-        same_sweep = int((gsi[s] == csi[s]).all(dim=1).sum())
+        agree = torch.as_tensor(agree_within_ties(
+            gi.numpy(), ci.numpy(), ds.train, q, ds.metric)) & (git == cit)
+        agree_sweep = int(agree_within_ties(
+            gsi[s].numpy(), csi[s].numpy(), ds.train, q, ds.metric).sum())
         differ = []
         for row in torch.nonzero(~same).flatten().tolist():
             cols = torch.nonzero(gi[row] != ci[row]).flatten().tolist()
             j = cols[0] if cols else None
             differ.append({
                 "query": row, "expansions": [int(git[row]), int(cit[row])],
+                "agrees": bool(agree[row]),
                 "first_col": j,
                 "ids": None if j is None else [int(gi[row, j]),
                                                int(ci[row, j])],
                 "dists": None if j is None else [float(gd[row, j]),
                                                  float(cd[row, j])]})
         rec = {"phase": "graph_agreement", "what": label, "ef": ef, "n": n,
-               "equal": int(same.sum()), "equal_sweep": same_sweep,
-               "differ": differ,
+               "equal": int(same.sum()), "agree": int(agree.sum()),
+               "equal_sweep": int((gsi[s] == csi[s]).all(dim=1).sum()),
+               "agree_sweep": agree_sweep, "differ": differ,
                "max_abs_err_equal": float((gd - cd)[same].abs().max())
                if bool(same.any()) else None,
                "expansions_mean": float(git.float().mean()),
                "expansions_max": int(git.max())}
         log(json.dumps(rec))
-        check(int(same.sum()) >= 0.99 * n,
+        check(int(agree.sum()) >= 0.99 * n,
               f"{label} ef {ef}: card and CPU differ on "
-              f"{n - int(same.sum())} of {n} queries")
-        check(same_sweep >= 0.99 * n,
+              f"{n - int(agree.sum())} of {n} queries beyond near ties")
+        check(agree_sweep >= 0.99 * n,
               f"{label} ef {ef}: the sweep's ids differ on card and CPU on "
-              f"{n - same_sweep} of {n} queries")
+              f"{n - agree_sweep} of {n} queries beyond near ties")
         check(bool((git > 0).all()), f"{label}: a query expanded nothing")
         recs.append(rec)
     return recs
@@ -3507,8 +3959,7 @@ def phase_graphs(torch):
         t2 = time.perf_counter()
         for algo, mod in (("KNNGraph", graph), ("HNSW", hnsw)):
             out[f"agree_{algo}"] = graph_agreement(
-                torch, f"{algo} {GRAPHS}", mod, kept[algo, "euclidean"],
-                ds.test)
+                torch, f"{algo} {GRAPHS}", mod, kept[algo, "euclidean"], ds)
         Q = torch.as_tensor(ds.test, device="cuda")
         out["profile_hnsw"] = graph_profile(
             torch, f"HNSW {GRAPHS}", hnsw, kept["HNSW", "euclidean"], Q, 64)
@@ -3519,7 +3970,7 @@ def phase_graphs(torch):
         t4 = time.perf_counter()
         state = kept["KNNGraph", "angular"]
         out["agree_KNNGraph_angular"] = graph_agreement(
-            torch, f"KNNGraph {ANGULAR}", graph, state, ads.test)
+            torch, f"KNNGraph {ANGULAR}", graph, state, ads)
         Q = torch.as_tensor(ads.test, device="cuda")
         out["profile_knngraph"] = graph_profile(
             torch, f"KNNGraph {ANGULAR}", graph, state, Q, 64)
@@ -3638,6 +4089,7 @@ def main() -> int:
     sharded_launches = phase_sharded(torch, ds, state)
     del state
     torch.cuda.empty_cache()
+    phase_lm(torch, peaks, smi_line)
     if before is not None:
         ads = get_dataset(ANGULAR, device="cuda")
         astate = ivf.build(ads.train, metric="angular", n_clusters=1024,

@@ -17,7 +17,12 @@ Three gates, the reference's:
     ``all_gather`` of every shard's top-k, while its recall@10 stays
     within 0.01 of the exact reference (byte model pinned in
     ``repro_torch.dist.wire``; recall measured end to end with
-    ``exact_vals=False`` -- the minimum-bytes configuration).
+    ``exact_vals=False`` -- the minimum-bytes configuration).  The
+    reference measures that recall on the first ``QBATCH`` queries only;
+    the port measures it on every test query of the set, ``QBATCH`` at a
+    time, and reports the first batch's figure beside it.  On 32 queries
+    the codec's mean loss (~0.5 % of the ids) sits close enough to the
+    0.01 margin that some freshly drawn sets miss it by one id.
   * **zero retraces** -- the reference counts jit traces
     (``functional.TRACE_COUNTS``); the port has no jit and no counter.
     The gate keeps its name and checks the property the single trace
@@ -122,32 +127,41 @@ def _ids_phase(n, dev, reps):
 def _bytes_phase(n, dev):
     """Gate 2: int8 merge tree >= 4x fewer wire bytes than the flat f32
     all_gather at equal recall@10 (minimum-bytes config: carry=k,
-    exact_vals=False)."""
+    exact_vals=False), the recalls over every test query."""
     S = 8
     flat = wire.flat_gather_wire_bytes(S, K)
     merged = wire.merge_wire_bytes(S, K, codec="int8", carry=K)
     ratio = flat / merged
 
     ds = get_dataset(DATASETS["euclidean"].format(n=n), device=dev)
-    Q = queries_on(ds.test[:QBATCH], "euclidean", dev)
-    true = ds.neighbors[:QBATCH, :K]
+    true = ds.neighbors[:, :K]
     ref = bruteforce.build(ds.train, metric="euclidean", device=dev)
-    _, ref_ids = bruteforce.search(ref, Q, k=K)
-    ref_recall = _recall(ref_ids, true)
-
     state = sharded.bruteforce_build(ds.train, metric="euclidean",
                                      n_shards=S, wire_codec="int8", carry=K,
                                      device=dev)
-    _, ids8 = sharded.bruteforce_search(state, Q, k=K, exact_vals=False)
-    int8_recall = _recall(ids8, true)
+    ref_ids, ids8 = [], []
+    for s in range(0, len(ds.test), QBATCH):
+        Q = queries_on(ds.test[s:s + QBATCH], "euclidean", dev)
+        ref_ids.append(bruteforce.search(ref, Q, k=K)[1].cpu())
+        ids8.append(sharded.bruteforce_search(state, Q, k=K,
+                                              exact_vals=False)[1].cpu())
+    ref_recall = _recall(torch.cat(ref_ids), true)
+    int8_recall = _recall(torch.cat(ids8), true)
+    first_recall = _recall(ids8[0], true[:QBATCH])
+    first_ref_recall = _recall(ref_ids[0], true[:QBATCH])
 
     ok = ratio >= MIN_BYTES_RATIO and int8_recall >= ref_recall - RECALL_TOL
     row = Row("sharded/wire/int8/shards=8", 0.0,
               f"flat_bytes={flat};merge_bytes={merged};ratio={ratio:.2f};"
-              f"recall={int8_recall:.3f};ref_recall={ref_recall:.3f}")
+              f"queries={len(true)};recall={int8_recall:.4f};"
+              f"ref_recall={ref_recall:.4f};"
+              f"recall_first{QBATCH}={first_recall:.4f};"
+              f"ref_recall_first{QBATCH}={first_ref_recall:.4f}")
     return row, ok, {"flat_bytes": flat, "merge_bytes": merged,
-                     "ratio": ratio, "recall": int8_recall,
-                     "ref_recall": ref_recall}
+                     "ratio": ratio, "queries": len(true),
+                     "recall": int8_recall, "ref_recall": ref_recall,
+                     f"recall_first{QBATCH}": first_recall,
+                     f"ref_recall_first{QBATCH}": first_ref_recall}
 
 
 def _retrace_phase(eu_states, state):

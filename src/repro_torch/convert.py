@@ -13,12 +13,19 @@ A reference ``Sharded*`` state carries across the same way: its
 ``mesh_shape``) in ``static``; the port serves it on the stacked mesh
 (:mod:`repro_torch.dist.shard_state`).
 
-The function takes numpy only, so it imports nothing of JAX.
+An LM's weights and decode caches carry across the same way
+(:func:`lm_params_from_reference`, :func:`caches_from_reference`):
+
+    ref = repro.models.transformer.init(jax.random.PRNGKey(0), cfg)
+    params = lm_params_from_reference(jax.tree.map(np.asarray, ref),
+                                      device="cpu")
+
+The functions take numpy only, so they import nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -49,3 +56,37 @@ def state_from_reference(algo: str, metric: str,
            else tuple(tensor(x) for x in a) if isinstance(a, (tuple, list))
            else tensor(a) for name, a in arrays.items()}
     return IndexState(algo, metric, out, dict(static))
+
+
+def _reference_tensor(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor on ``dev``.  A bfloat16 array (JAX hands
+    bf16 leaves out as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) is taken by its bits: viewed as int16, then as bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.int16), copy=True))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def _tree_to_torch(tree, dev):
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to_torch(v, dev) for v in tree)
+    return _reference_tensor(tree, dev)
+
+
+def lm_params_from_reference(arrays: Mapping[str, Any],
+                             device=None) -> dict:
+    """The reference's LM params tree (``{"embed", "final_ln", "runs":
+    [...], "lm_head"?}``, numpy leaves) as the port's tree of tensors on
+    ``device``, leaf for leaf: each run's leaves keep their stacked
+    leading layer axis."""
+    return _tree_to_torch(arrays, resolve_device(device))
+
+
+def caches_from_reference(caches: Sequence, device=None) -> list:
+    """The reference's decode caches (one tuple of numpy arrays a run) as
+    the port's list of tuples of tensors on ``device``."""
+    return _tree_to_torch(list(caches), resolve_device(device))

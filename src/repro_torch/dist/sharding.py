@@ -7,12 +7,15 @@ name.  Specs are plain tuples here, one entry per array dim: a physical
 axis name, a tuple of them, or ``None`` (replicated) -- the reference's
 ``PartitionSpec`` entries.
 
-The other half of the reference module (``constrain``, ``named_sharding``,
-``spec_tree_to_shardings``) places model arrays on a device mesh; it
-serves the models (ROADMAP.md §1 item 7) and waits for them.  The ANN
-layer needs only the rule for its corpus arrays: dim 0 over the shard
-axes (:func:`rows_sharding`), which the stacked mesh realises by keeping
-that dim on one device (:mod:`repro_torch.dist.mesh`).
+The model half (``constrain``, ``named_sharding``, ``is_axes_leaf``,
+``spec_tree_to_shardings``) annotates the models' arrays.  On the stacked
+mesh every logical device lives on one torch device, so an annotation
+places nothing: ``constrain`` returns its input, as the reference's
+``with_sharding_constraint`` never changes a value, and the sharding of
+an array is its resolved spec tuple.  The ANN layer needs only the rule
+for its corpus arrays: dim 0 over the shard axes (:func:`rows_sharding`),
+which the stacked mesh realises by keeping that dim on one device
+(:mod:`repro_torch.dist.mesh`).
 """
 
 from __future__ import annotations
@@ -52,6 +55,41 @@ def partition_spec(mesh, *entries) -> tuple:
     fully replicated): a tuple of physical axes (or ``None``) per dim."""
     used: set = set()
     return tuple(_resolve(mesh, e, used) for e in entries)
+
+
+def named_sharding(mesh, *entries) -> tuple:
+    """The sharding of an array under logical ``entries``: on the stacked
+    mesh, its resolved spec (:func:`partition_spec`)."""
+    return partition_spec(mesh, *entries)
+
+
+def constrain(x, mesh, *entries):
+    """The reference's sharding constraint under a logical spec: ``x``
+    itself, with or without a mesh (a constraint changes no value, and
+    the stacked mesh keeps every logical device on ``x``'s device)."""
+    return x
+
+
+def is_axes_leaf(x) -> bool:
+    """True for a tuple of logical axis names (a spec-tree leaf)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) for e in x)
+
+
+def spec_tree_to_shardings(spec_tree, mesh):
+    """Map a tree (dicts, lists, tuples) of logical-axes tuples to their
+    shardings (:func:`named_sharding`), keeping the tree's structure."""
+    if is_axes_leaf(spec_tree):
+        return named_sharding(mesh, *spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: spec_tree_to_shardings(v, mesh)
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(spec_tree_to_shardings(v, mesh)
+                               for v in spec_tree)
+    if spec_tree is None:
+        return None
+    raise TypeError(f"not a spec tree: {spec_tree!r}")
 
 
 def rows_sharding(mesh, axes: Sequence[str]) -> tuple:

@@ -1308,3 +1308,42 @@ def test_sharded_kernel_routes_match_plain(cuda, route):
         torch.testing.assert_close(gd.cpu(), wd, rtol=0, atol=0)
     finally:
         force_device_count(prev)
+
+
+LM_ARCHS = ["gemma3-27b", "phi4-mini-3.8b", "qwen1.5-32b",
+            "moonshot-v1-16b-a3b", "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serve_step_on_the_card_equals_the_cpu(cuda, arch):
+    """Each LM smoke config (fp32), the same weights on the card and on
+    the CPU: a 32-token prefill, then 3 ``serve_step`` calls from its
+    caches in a 40-slot cache (gemma3's 16-slot ring wraps); logits and
+    caches within rtol = 1e-5, atol = 1e-4 (the logits reach ~60), as the
+    CPU parity tests hold the port to the reference."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).make_smoke_config()
+    params = T.init(0, cfg, device=cuda)
+    host = T._map_leaves(lambda t: t.cpu(), params)
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 35)))
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        logits, pre = T.prefill_step(p, cfg, toks[:, :32].to(dev))
+        caches = T.init_cache(cfg, 2, 40, device=dev)
+        for run, prun in zip(caches, pre):
+            for c, pc in zip(run, prun):
+                c[:, :, :pc.shape[2]] = pc
+        steps = [logits]
+        for t in range(3):
+            lg, caches = T.serve_step(p, cfg, toks[:, 32 + t:33 + t].to(dev),
+                                      caches, 32 + t)
+            steps.append(lg)
+        out[dev] = (steps, caches)
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    for run, wrun in zip(out["cuda"][1], out["cpu"][1]):
+        for c, w in zip(run, wrun):
+            torch.testing.assert_close(c.cpu(), w, rtol=1e-5, atol=1e-4)

@@ -55,7 +55,16 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.dist.grad_compression",
             "repro_torch.dist.compression", "repro_torch.ann.sharded",
             "repro_torch.benchmarks.bench_sharded",
-            "repro_torch.benchmarks.bench_availability"} <= set(mods)
+            "repro_torch.benchmarks.bench_availability",
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.flash", "repro_torch.models.moe",
+            "repro_torch.models.transformer", "repro_torch.configs",
+            "repro_torch.configs.registry", "repro_torch.configs.shapes",
+            "repro_torch.configs.phi4_mini_3_8b",
+            "repro_torch.configs.gemma3_27b",
+            "repro_torch.configs.qwen1_5_32b",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.deepseek_v2_236b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -104,6 +113,11 @@ def _entry_points(tmp_path):
     from repro_torch.serve import AsyncEngine, Engine, checkpoint, load_state
     from repro_torch.ann import sharded
     from repro_torch.benchmarks import bench_availability, bench_sharded
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.models import transformer
+
+    lm = get_arch("phi4-mini-3.8b").make_smoke_config()
 
     X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
     bf = Definition(algorithm="bf", constructor="BruteForce", module=None,
@@ -193,6 +207,11 @@ def _entry_points(tmp_path):
         "bench_sharded": lambda dev: bench_sharded.run("smoke", dev),
         "bench_availability": lambda dev: bench_availability.run("smoke",
                                                                   dev),
+        "transformer.init": lambda dev: transformer.init(0, lm, device=dev),
+        "transformer.init_cache": lambda dev: transformer.init_cache(
+            lm, 1, 8, device=dev),
+        "lm_params_from_reference": lambda dev: lm_params_from_reference(
+            {"embed": X, "runs": [{"w": X[None]}]}, device=dev),
     }
 
 
@@ -231,7 +250,9 @@ ENTRY_POINTS = ["resolve_device", "get_dataset", "exact_knn", "kmeans",
                 "bench_sweep", "Engine.build", "Engine.load",
                 "checkpoint.load", "load_state", "AsyncEngine.load",
                 "launch.serve", "sharded.bruteforce_build",
-                "sharded.ivf_build", "bench_sharded", "bench_availability"]
+                "sharded.ivf_build", "bench_sharded", "bench_availability",
+                "transformer.init", "transformer.init_cache",
+                "lm_params_from_reference"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
